@@ -1,0 +1,1 @@
+"""Model pieces of the port (counterpart of paddle_tpu/models)."""

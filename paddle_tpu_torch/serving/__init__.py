@@ -1,0 +1,34 @@
+"""Serving tier of the port (counterpart of paddle_tpu/serving): the paged
+KV pool and greedy continuous-batching decode."""
+
+from ..kernels.paged_attention import GroupedHeadsError
+from .generate import (
+    ContinuousBatchingLoop,
+    DecodeConfig,
+    DecodeRequest,
+    GeneratedSequence,
+    NonFiniteSequenceError,
+    TransformerDecoder,
+    full_decode,
+    full_forward,
+    init_decode_params,
+    params_from_jax,
+)
+from .kvcache import KVCachePool, PagePoolExhausted, SequenceHandle
+
+__all__ = [
+    "ContinuousBatchingLoop",
+    "DecodeConfig",
+    "DecodeRequest",
+    "GeneratedSequence",
+    "GroupedHeadsError",
+    "KVCachePool",
+    "NonFiniteSequenceError",
+    "PagePoolExhausted",
+    "SequenceHandle",
+    "TransformerDecoder",
+    "full_decode",
+    "full_forward",
+    "init_decode_params",
+    "params_from_jax",
+]

@@ -1,0 +1,585 @@
+"""Greedy continuous-batching decode over the paged KV pool (counterpart
+of paddle_tpu/serving/generate.py, the single-device greedy slice).
+
+The model is the decoder half of the repo's Transformer: post-norm
+residual blocks (LayerNorm(x + sublayer(x))), scaled embedding plus
+sinusoid positions, tied input/output embeddings, no cross-attention.
+:class:`TransformerDecoder` holds it as an ``nn.Module`` and runs the
+two serving steps:
+
+- ``prefill_step``: ONE causal pass over a co-admitted group's prompts,
+  padded to the group's longest and masked through ``k_lengths``; it
+  writes every prompt token's K/V into the pool and returns the
+  next-token logits after each prompt.  Attention is the flash kernel.
+- ``decode_step``: one token per sequence; its K/V is appended to the
+  pool and attention is the paged decode kernel over the page tables.
+
+:class:`ContinuousBatchingLoop` keeps up to ``max_batch`` sequences in
+flight.  Admission is reservation-based and FIFO (a request enters only
+when the pool covers every admitted sequence's worst case), each
+admitted group gets one batched prefill, decoding is greedy argmax, and
+a sequence retires on ``eos_id`` or ``max_new_tokens`` and returns its
+pages.  A non-finite logits row quarantines only its own sequence; any
+exception out of a step frees every stepping sequence's pages before it
+propagates.
+
+``full_forward`` / ``full_decode`` are the oracles: per-sequence greedy
+decode recomputing the whole prefix with plain attention and no cache.
+
+Left for later slices: speculation and verify, sampling, the prefix
+cache and chunked prefill, adapters, int8/bf16 pools, window and sink
+decode, two-level tables, SPMD programs, the tiered KV store and the
+Engine front end.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from ..kernels.flash_attention import flash_attention, reference_attention
+from ..kernels.paged_attention import (
+    _group_size,
+    paged_decode_attention,
+    repeat_kv,
+)
+from ..models.transformer import _sinusoid_table
+from .kvcache import KVCachePool, PagePoolExhausted
+
+__all__ = [
+    "ContinuousBatchingLoop",
+    "DecodeConfig",
+    "DecodeRequest",
+    "GeneratedSequence",
+    "NonFiniteSequenceError",
+    "TransformerDecoder",
+    "full_decode",
+    "full_forward",
+    "init_decode_params",
+    "params_from_jax",
+]
+
+_LAYER_KEYS = ("wq", "wk", "wv", "wo", "ln1_g", "ln1_b", "w1", "b1", "w2",
+               "b2", "ln2_g", "ln2_b")
+
+
+class NonFiniteSequenceError(RuntimeError):
+    """One sequence's logits went non-finite: that sequence was
+    quarantined — evicted from the batch, its pages scrubbed and freed —
+    while its batch-mates decode on."""
+
+    def __init__(self, seq_id: int, step: int):
+        self.seq_id = seq_id
+        self.step = step
+        super().__init__(
+            f"sequence {seq_id} produced non-finite logits at loop step "
+            f"{step}; it was evicted from the batch (pages freed) and "
+            "its batch-mates decoded on")
+
+    def __reduce__(self):
+        return (type(self), (self.seq_id, self.step))
+
+
+@dataclasses.dataclass
+class DecodeConfig:
+    """Decoder-only slice of the repo's TransformerConfig.
+
+    ``n_kv_head`` (None: n_head) enables grouped-query attention.  As in
+    the JAX package, validation is lazy: ``head_dim`` raises ValueError
+    when d_model does not divide by n_head, and ``num_kv_heads`` raises
+    GroupedHeadsError when n_head is not a multiple of n_kv_head."""
+
+    vocab_size: int = 128
+    d_model: int = 32
+    n_head: int = 4
+    n_layer: int = 2
+    d_inner: int = 64
+    max_length: int = 96
+    eos_id: Optional[int] = None  # None: sequences retire on max_new only
+    n_kv_head: Optional[int] = None  # None: n_head (no grouping)
+
+    @property
+    def head_dim(self) -> int:
+        if self.d_model % self.n_head:
+            raise ValueError("d_model must divide by n_head")
+        return self.d_model // self.n_head
+
+    @property
+    def num_kv_heads(self) -> int:
+        h_kv = self.n_kv_head if self.n_kv_head is not None else self.n_head
+        _group_size(self.n_head, h_kv)  # typed GroupedHeadsError raise
+        return h_kv
+
+    @property
+    def group_size(self) -> int:
+        """Query heads per KV head (1 without grouping)."""
+        return self.n_head // self.num_kv_heads
+
+
+def init_decode_params(cfg: DecodeConfig, seed: int = 0) -> Dict:
+    """Deterministic fp32 params; weights at 1/sqrt(fan_in) scale.  The
+    same numpy stream as the JAX package: one seed gives both packages
+    identical weights."""
+    rng = np.random.RandomState(seed)
+
+    def mat(d_in, d_out):
+        return (rng.standard_normal((d_in, d_out)) / np.sqrt(d_in)).astype(
+            np.float32)
+
+    d, f = cfg.d_model, cfg.d_inner
+    d_kv = cfg.num_kv_heads * cfg.head_dim  # K/V project to H_kv heads
+    layers = []
+    for _ in range(cfg.n_layer):
+        layers.append({
+            "wq": mat(d, d), "wk": mat(d, d_kv), "wv": mat(d, d_kv),
+            "wo": mat(d, d),
+            "ln1_g": np.ones(d, np.float32), "ln1_b": np.zeros(d, np.float32),
+            "w1": mat(d, f), "b1": np.zeros(f, np.float32),
+            "w2": mat(f, d), "b2": np.zeros(d, np.float32),
+            "ln2_g": np.ones(d, np.float32), "ln2_b": np.zeros(d, np.float32),
+        })
+    return {
+        "embed": (rng.standard_normal((cfg.vocab_size, d)) / np.sqrt(d)
+                  ).astype(np.float32),
+        "pos": _sinusoid_table(cfg.max_length, d),
+        "layers": layers,
+    }
+
+
+def params_from_jax(params: Dict, device=None) -> Dict:
+    """The JAX package's params dict (numpy or jax arrays, as its
+    ``init_decode_params`` returns them) -> the same nested dict of fp32
+    torch tensors on ``device`` (None: the card).  Tensors pass through,
+    moved to the device."""
+    dev = resolve_device(device)
+
+    def t(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=dev, dtype=torch.float32)
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    return {"embed": t(params["embed"]), "pos": t(params["pos"]),
+            "layers": [{k: t(lp[k]) for k in _LAYER_KEYS}
+                       for lp in params["layers"]]}
+
+
+def _layernorm(x, g, b, eps: float = 1e-5):
+    mean = x.mean(dim=-1, keepdim=True)
+    var = (x - mean).square().mean(dim=-1, keepdim=True)
+    return (x - mean) / torch.sqrt(var + eps) * g + b
+
+
+def _ffn_block(h, lp):
+    u = torch.relu(h @ lp["w1"] + lp["b1"])
+    return _layernorm(h + (u @ lp["w2"] + lp["b2"]), lp["ln2_g"], lp["ln2_b"])
+
+
+@torch.inference_mode()
+def full_forward(params: Dict, cfg: DecodeConfig, tokens,
+                 device=None) -> np.ndarray:
+    """Oracle forward: full-sequence causal attention (plain PyTorch), no
+    cache.  tokens [S] int -> logits [S, V] numpy."""
+    st = params_from_jax(params, device)
+    dev = st["embed"].device
+    tokens = np.asarray(tokens, np.int64)
+    S = tokens.shape[0]
+    if S > cfg.max_length:
+        raise ValueError(f"sequence length {S} > max_length {cfg.max_length}")
+    d, H, Dh = cfg.d_model, cfg.n_head, cfg.head_dim
+    Hkv, G = cfg.num_kv_heads, cfg.group_size
+    tok = torch.as_tensor(tokens, device=dev)
+    h = st["embed"][tok] * float(np.sqrt(d)) + st["pos"][:S]
+    for lp in st["layers"]:
+        q = (h @ lp["wq"]).reshape(S, H, Dh).transpose(0, 1)[None]
+        k = (h @ lp["wk"]).reshape(S, Hkv, Dh).transpose(0, 1)[None]
+        v = (h @ lp["wv"]).reshape(S, Hkv, Dh).transpose(0, 1)[None]
+        k, v = repeat_kv(k, v, G)
+        attn = reference_attention(q, k, v, causal=True, scale=Dh ** -0.5)
+        attn = attn[0].transpose(0, 1).reshape(S, d)
+        h = _layernorm(h + attn @ lp["wo"], lp["ln1_g"], lp["ln1_b"])
+        h = _ffn_block(h, lp)
+    return (h @ st["embed"].T).cpu().numpy()
+
+
+def full_decode(params: Dict, cfg: DecodeConfig, prompt: Sequence[int],
+                max_new_tokens: int, device=None
+                ) -> Tuple[List[int], List[np.ndarray]]:
+    """Greedy per-sequence decode, recomputing the full prefix each token.
+    Returns (generated tokens, the [V] logits row behind each)."""
+    st = params_from_jax(params, device)
+    tokens = [int(t) for t in prompt]
+    out: List[int] = []
+    rows: List[np.ndarray] = []
+    for _ in range(max_new_tokens):
+        row = full_forward(st, cfg, tokens, device=st["embed"].device)[-1]
+        nxt = int(row.argmax())
+        rows.append(row)
+        out.append(nxt)
+        tokens.append(nxt)
+        if cfg.eos_id is not None and nxt == cfg.eos_id:
+            break
+    return out, rows
+
+
+class _DecoderLayer(nn.Module):
+    def __init__(self, d: int, d_kv: int, f: int, device):
+        super().__init__()
+        shapes = {"wq": (d, d), "wk": (d, d_kv), "wv": (d, d_kv),
+                  "wo": (d, d), "ln1_g": (d,), "ln1_b": (d,), "w1": (d, f),
+                  "b1": (f,), "w2": (f, d), "b2": (d,), "ln2_g": (d,),
+                  "ln2_b": (d,)}
+        for name, shape in shapes.items():
+            self.register_buffer(name, torch.zeros(shape, device=device))
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        return {k: getattr(self, k) for k in _LAYER_KEYS}
+
+
+class TransformerDecoder(nn.Module):
+    """The serving decoder as an ``nn.Module`` of fp32 buffers on
+    ``device`` (None: the card).  Weights start at zero; load them with
+    :meth:`load_jax_params`.  ``attend_prefill``/``attend_decode`` are
+    the two attention calls the steps make — the flash and paged decode
+    kernels."""
+
+    def __init__(self, cfg: DecodeConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        d, f = cfg.d_model, cfg.d_inner
+        d_kv = cfg.num_kv_heads * cfg.head_dim
+        self.register_buffer(
+            "embed", torch.zeros(cfg.vocab_size, d, device=self.device))
+        self.register_buffer(
+            "pos", torch.zeros(cfg.max_length, d, device=self.device))
+        self.layers = nn.ModuleList(
+            _DecoderLayer(d, d_kv, f, self.device) for _ in range(cfg.n_layer))
+
+    @torch.no_grad()
+    def load_jax_params(self, params: Dict) -> "TransformerDecoder":
+        """Copy a JAX-layout params dict (see :func:`params_from_jax`) into
+        the module's buffers; shapes must match the config."""
+        st = params_from_jax(params, self.device)
+        if len(st["layers"]) != len(self.layers):
+            raise ValueError(f"params carry {len(st['layers'])} layers, the "
+                             f"config {len(self.layers)}")
+        self.embed.copy_(st["embed"])
+        self.pos.copy_(st["pos"])
+        for layer, lp in zip(self.layers, st["layers"]):
+            for k in _LAYER_KEYS:
+                getattr(layer, k).copy_(lp[k])
+        return self
+
+    def _index(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), device=self.device).long()
+
+    def attend_prefill(self, q, k, v, lens) -> torch.Tensor:
+        """Causal ragged attention over [B, H, S, D] (flash kernel)."""
+        return flash_attention(q, k, v, causal=True,
+                               scale=self.cfg.head_dim ** -0.5, k_lengths=lens)
+
+    def attend_decode(self, q, k_pages, v_pages, tables, lengths
+                      ) -> torch.Tensor:
+        """Sq=1 attention over one layer of the pool (paged decode kernel)."""
+        return paged_decode_attention(q, k_pages, v_pages, tables, lengths,
+                                      scale=self.cfg.head_dim ** -0.5)
+
+    @torch.inference_mode()
+    def decode_step(self, pool: KVCachePool, seq_ids: Sequence[int],
+                    tokens, positions) -> torch.Tensor:
+        """Feed token[i] at position[i] for every sequence, append its K/V
+        to the pool, and return the next-token logits [B, V]."""
+        cfg = self.cfg
+        B = len(seq_ids)
+        d, H, Dh, Hkv = cfg.d_model, cfg.n_head, cfg.head_dim, cfg.num_kv_heads
+        h = self.embed[self._index(tokens)] * float(np.sqrt(d)) \
+            + self.pos[self._index(positions)]
+        pages, slots = pool.append_token(seq_ids)
+        pages, slots = self._index(pages), self._index(slots)
+        tables, lengths = pool.page_table_batch(seq_ids)
+        tables = torch.as_tensor(tables, device=self.device)
+        lengths = torch.as_tensor(lengths, device=self.device)
+        for li, layer in enumerate(self.layers):
+            lp = layer.params()
+            q = (h @ lp["wq"]).reshape(B, H, Dh)
+            k = (h @ lp["wk"]).reshape(B, Hkv, Dh)
+            v = (h @ lp["wv"]).reshape(B, Hkv, Dh)
+            pool.write_kv(li, pages, slots, k, v)
+            attn = self.attend_decode(q[:, :, None, :], pool.k_pages[li],
+                                      pool.v_pages[li], tables, lengths)
+            attn = attn[:, :, 0, :].reshape(B, d)
+            h = _layernorm(h + attn @ lp["wo"], lp["ln1_g"], lp["ln1_b"])
+            h = _ffn_block(h, lp)
+        return h @ self.embed.T
+
+    @torch.inference_mode()
+    def prefill_step(self, pool: KVCachePool, seq_ids: Sequence[int],
+                     prompts: Sequence[Sequence[int]]) -> torch.Tensor:
+        """Batched whole-prompt prefill: one causal pass over every prompt
+        (padded to the longest, masked through k_lengths) writes each
+        prompt token's K/V into the pool and returns the logits [B, V]
+        after each prompt.  Padded rows compute values nobody reads:
+        attention masks them as keys, their K/V is never written, and the
+        returned row is taken at each sequence's true last position."""
+        cfg = self.cfg
+        lens = np.asarray([len(p) for p in prompts], np.int32)
+        if not len(lens) or lens.min() < 1:
+            raise ValueError("prefill needs non-empty prompts")
+        B, Smax = len(prompts), int(lens.max())
+        if Smax > cfg.max_length:
+            # before append_tokens: a failed prefill must not leave claimed
+            # slots with no K/V behind
+            raise ValueError(
+                f"prompt length {Smax} > max_length {cfg.max_length}")
+        d, H, Dh = cfg.d_model, cfg.n_head, cfg.head_dim
+        Hkv, G = cfg.num_kv_heads, cfg.group_size
+        tokens = np.zeros((B, Smax), np.int64)
+        for i, p in enumerate(prompts):
+            tokens[i, :lens[i]] = p
+        # flat (sequence order, token order) claim — matches append_tokens
+        pages, slots = pool.append_tokens(seq_ids, lens)
+        pages, slots = self._index(pages), self._index(slots)
+        b_idx = self._index(np.repeat(np.arange(B), lens))
+        t_idx = self._index(np.concatenate([np.arange(n) for n in lens]))
+        klen = torch.as_tensor(lens, device=self.device)
+
+        h = self.embed[self._index(tokens)] * float(np.sqrt(d)) \
+            + self.pos[None, :Smax]  # [B, Smax, d]
+        for li, layer in enumerate(self.layers):
+            lp = layer.params()
+            q = (h @ lp["wq"]).reshape(B, Smax, H, Dh)
+            k = (h @ lp["wk"]).reshape(B, Smax, Hkv, Dh)
+            v = (h @ lp["wv"]).reshape(B, Smax, Hkv, Dh)
+            # valid tokens only ([T, H_kv, Dh] rows in claim order)
+            pool.write_kv(li, pages, slots, k[b_idx, t_idx], v[b_idx, t_idx])
+            kh, vh = repeat_kv(k.transpose(1, 2), v.transpose(1, 2), G)
+            attn = self.attend_prefill(q.transpose(1, 2).contiguous(),
+                                       kh.contiguous(), vh.contiguous(), klen)
+            attn = attn.transpose(1, 2).reshape(B, Smax, d)
+            h = _layernorm(h + attn @ lp["wo"], lp["ln1_g"], lp["ln1_b"])
+            h = _ffn_block(h, lp)
+        # true last positions: int64 indices on the model's device
+        h_last = h[torch.arange(B, device=self.device), self._index(lens - 1)]
+        return h_last @ self.embed.T
+
+
+@dataclasses.dataclass
+class DecodeRequest:
+    prompt: Sequence[int]
+    max_new_tokens: int
+
+
+@dataclasses.dataclass
+class GeneratedSequence:
+    """One finished sequence: generated tokens and the logits row behind
+    each (the parity surface against full_decode), plus latency.
+    ``error`` is a NonFiniteSequenceError when the sequence was
+    quarantined; its tokens then stop at the last finite step."""
+
+    seq_id: int
+    prompt: List[int]
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    logits: List[np.ndarray] = dataclasses.field(default_factory=list)
+    admitted_at: float = 0.0
+    ttft_s: Optional[float] = None
+    finished_at: float = 0.0
+    error: Optional[Exception] = None
+
+
+class _Active:
+    __slots__ = ("req", "seq_id", "pos", "result", "charged")
+
+    def __init__(self, req: DecodeRequest, seq_id: int,
+                 result: GeneratedSequence, charged: int):
+        self.req = req
+        self.seq_id = seq_id
+        self.pos = 0  # next position to feed
+        self.result = result
+        self.charged = charged  # pages this admission reserved
+
+
+class ContinuousBatchingLoop:
+    """Admit-as-they-retire greedy decode over one KVCachePool.
+
+    ``params`` is a JAX-layout params dict (loaded into a
+    :class:`TransformerDecoder` on ``device``) or a TransformerDecoder
+    already on that device.  ``device=None`` is the card (raises without
+    one); the pool must live on the same device.
+
+    Admission is reservation-based: a request is admitted only when the
+    pool covers every admitted sequence's worst-case footprint
+    (ceil((len(prompt)+max_new)/page_size) pages), so no append can fail
+    mid-decode; waiting requests admit in FIFO order as retirements free
+    pages.  Each co-admitted group runs ONE ``prefill_step``; the loop
+    then re-admits before decoding.  Counters: ``steps``,
+    ``prefill_steps``, ``decode_steps``, ``quarantined``; host-clock
+    durations of each step (ending after the logits reach the host) in
+    ``prefill_step_s`` and ``decode_step_s``."""
+
+    def __init__(self, params: Union[Dict, TransformerDecoder],
+                 cfg: DecodeConfig, pool: KVCachePool, max_batch: int = 4,
+                 device=None):
+        self.device = resolve_device(device)
+        if pool.device != self.device:
+            raise ValueError(f"pool lives on {pool.device}, the loop runs "
+                             f"on {self.device}")
+        if pool.num_kv_heads != cfg.num_kv_heads:
+            raise ValueError(
+                f"pool holds {pool.num_kv_heads} KV heads but the model "
+                f"projects {cfg.num_kv_heads} (cfg.n_kv_head)")
+        if isinstance(params, TransformerDecoder):
+            if params.device != self.device:
+                raise ValueError(f"model lives on {params.device}, the loop "
+                                 f"runs on {self.device}")
+            self.model = params
+        else:
+            self.model = TransformerDecoder(cfg, self.device)
+            self.model.load_jax_params(params)
+        self.cfg = cfg
+        self.pool = pool
+        self.max_batch = int(max_batch)
+        self._next_seq_id = 0
+        self.steps = 0
+        self.prefill_steps = 0
+        self.decode_steps = 0
+        self.quarantined = 0
+        self.prefill_step_s: List[float] = []
+        self.decode_step_s: List[float] = []
+
+    def _footprint(self, req: DecodeRequest) -> int:
+        """Worst-case pages a request pulls from the free list."""
+        total = len(req.prompt) + req.max_new_tokens
+        if total > self.cfg.max_length:
+            raise ValueError(f"prompt+max_new={total} exceeds max_length "
+                             f"{self.cfg.max_length}")
+        return KVCachePool.pages_needed(total, self.pool.page_size)
+
+    def run(self, requests: Sequence[DecodeRequest]
+            ) -> List[GeneratedSequence]:
+        waiting: List[Tuple[DecodeRequest, GeneratedSequence]] = []
+        results: List[GeneratedSequence] = []
+        for req in requests:
+            if not len(req.prompt):
+                raise ValueError("empty prompt")
+            # validate EVERY request before any work: a mid-run raise
+            # would strand pages and drop finished sequences' results
+            need = self._footprint(req)
+            if need > self.pool.num_pages:
+                raise PagePoolExhausted(
+                    f"request needs {need} pages worst-case but the pool "
+                    f"has {self.pool.num_pages} total")
+            seq = GeneratedSequence(seq_id=-1,
+                                    prompt=[int(t) for t in req.prompt])
+            results.append(seq)
+            waiting.append((req, seq))
+        active: List[_Active] = []
+        reserved_pages = 0
+
+        def quarantine(batch: List[_Active], logits: torch.Tensor,
+                       step_idx: int) -> Tuple[np.ndarray, set, float]:
+            """One host copy of the step's logits; every non-finite row's
+            sequence is scrubbed, freed and failed.  Returns (host logits,
+            surviving row indices, post-sync step-end time)."""
+            nonlocal reserved_pages
+            host = logits.float().cpu().numpy()
+            now = time.perf_counter()  # after the sync: true step end
+            finite = np.isfinite(host).all(axis=1)
+            for i in np.flatnonzero(~finite):
+                a = batch[i]
+                self.pool.scrub_seq_pages(a.seq_id)
+                self.pool.free_seq(a.seq_id)
+                active.remove(a)
+                a.result.error = NonFiniteSequenceError(a.seq_id, step_idx)
+                a.result.finished_at = now
+                reserved_pages -= a.charged
+                self.quarantined += 1
+            return host, set(np.flatnonzero(finite).tolist()), now
+
+        def emit(a: _Active, row: np.ndarray, now: float) -> bool:
+            """Record the greedy token; True when the sequence is done."""
+            tok = int(row.argmax())
+            a.result.tokens.append(tok)
+            a.result.logits.append(row)
+            if a.result.ttft_s is None:
+                a.result.ttft_s = now - a.result.admitted_at
+            return (len(a.result.tokens) >= a.req.max_new_tokens
+                    or (self.cfg.eos_id is not None
+                        and tok == self.cfg.eos_id))
+
+        def retire(done: List[_Active], now: float) -> None:
+            nonlocal reserved_pages
+            for a in done:
+                active.remove(a)
+                a.result.finished_at = now
+                self.pool.free_seq(a.seq_id)
+                reserved_pages -= a.charged
+
+        try:
+            while waiting or active:
+                newly: List[_Active] = []
+                while waiting and len(active) < self.max_batch:
+                    req, seq = waiting[0]
+                    need = self._footprint(req)
+                    if reserved_pages + need > self.pool.num_pages:
+                        break  # wait for retirements
+                    waiting.pop(0)
+                    seq.seq_id = self._next_seq_id
+                    self._next_seq_id += 1
+                    self.pool.allocate(seq.seq_id)
+                    seq.admitted_at = time.perf_counter()
+                    a = _Active(req, seq.seq_id, seq, need)
+                    active.append(a)
+                    newly.append(a)
+                    reserved_pages += need
+                # the up-front validation guarantees the head request fits
+                # an empty pool, so admission always progresses
+
+                if newly:
+                    t0 = time.perf_counter()
+                    step_idx = self.steps
+                    logits = self.model.prefill_step(
+                        self.pool, [a.seq_id for a in newly],
+                        [a.result.prompt for a in newly])
+                    self.steps += 1
+                    self.prefill_steps += 1
+                    host, ok, now = quarantine(newly, logits, step_idx)
+                    self.prefill_step_s.append(now - t0)
+                    done = []
+                    for i, a in enumerate(newly):
+                        a.pos = len(a.result.prompt)
+                        if i in ok and emit(a, host[i], now):
+                            done.append(a)
+                    retire(done, now)
+                    continue  # re-admit into freed slots before decoding
+
+                batch = list(active)
+                t0 = time.perf_counter()
+                step_idx = self.steps
+                logits = self.model.decode_step(
+                    self.pool, [a.seq_id for a in batch],
+                    [a.result.tokens[-1] for a in batch],
+                    [a.pos for a in batch])
+                self.steps += 1
+                self.decode_steps += 1
+                host, ok, now = quarantine(batch, logits, step_idx)
+                self.decode_step_s.append(now - t0)
+                done = []
+                for i, a in enumerate(batch):
+                    a.pos += 1
+                    if i in ok and emit(a, host[i], now):
+                        done.append(a)
+                retire(done, now)
+        except BaseException:
+            # ANY raise out of a step or admission: the stepping sequences'
+            # pages go back to the pool before the error propagates
+            for a in active:
+                self.pool.free_seq(a.seq_id)
+            active.clear()
+            raise
+        return results

@@ -1,0 +1,265 @@
+"""Paged KV-cache pool (counterpart of paddle_tpu/serving/kvcache.py,
+reduced to what greedy continuous batching calls).
+
+The pool is one preallocated torch tensor per K and V of shape
+``[num_layers, H_kv, num_pages, page_size, head_dim]`` on the pool's
+device — heads outside the page dimension, so one (head, page) block is
+a contiguous ``[page_size, head_dim]`` plane, the layout the paged
+decode kernel (kernels/csrc/paged_decode.cu) walks.  A sequence owns an
+ordered list of page ids (its page table) and a length; appending a
+token claims the next slot of its last page and takes a fresh page from
+the free list only every ``page_size`` tokens.  Retiring a sequence
+returns its pages in O(pages).
+
+Writes are IN PLACE: ``write_kv`` assigns through an index
+(``k_pages[layer][:, pages, slots] = k``), where the JAX pool rebuilt
+the array functionally with ``.at[layer, :, pages, slots].set(k)``.
+Note the indexing differs on purpose: in NumPy/JAX the integer
+``layer`` counts as an advanced index, so the advanced indices there are
+split by the head slice and the indexed view is ``[T, H, D]``; in torch
+the integer selects first, ``pages, slots`` stay adjacent and the view
+is ``[H, T, D]`` — so the port transposes the ``[T, H, D]`` rows before
+the write.
+
+Left for later slices: refcounted pages and copy-on-write (prefix
+cache), int8/bf16 pages with scales, truncate (speculation), export and
+import (tiered KV, fleet handoff), window eviction, two-level tables and
+defrag.  The pool is driven from one thread (the decode loop) and takes
+no lock.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..kernels.paged_attention import _group_size
+
+__all__ = ["KVCachePool", "PagePoolExhausted", "SequenceHandle"]
+
+
+class PagePoolExhausted(RuntimeError):
+    """No free page to satisfy an append — the admission controller must
+    retire or refuse sequences before this fires mid-decode."""
+
+
+@dataclasses.dataclass
+class SequenceHandle:
+    """Per-sequence page table: ordered page ids + token count."""
+
+    seq_id: int
+    pages: List[int] = dataclasses.field(default_factory=list)
+    length: int = 0
+
+    def capacity(self, page_size: int) -> int:
+        return len(self.pages) * page_size
+
+
+class KVCachePool:
+    """Preallocated paged K/V storage for every layer of one model.
+
+    Pages are float32 (bf16 and int8 pools are not ported yet).
+    ``num_heads`` is the model's QUERY head count; the pool stores
+    ``num_kv_heads`` (None: num_heads) heads, and ``H_q % H_kv != 0``
+    raises GroupedHeadsError.  ``device=None`` is the card (raises
+    without one); pass ``device="cpu"`` explicitly for the CPU."""
+
+    def __init__(self, num_pages: int, page_size: int, num_layers: int,
+                 num_heads: int, head_dim: int,
+                 num_kv_heads: Optional[int] = None, device=None):
+        if num_pages < 1 or page_size < 1:
+            raise ValueError("num_pages and page_size must be >= 1")
+        self.device = resolve_device(device)
+        self.num_pages = int(num_pages)
+        self.page_size = int(page_size)
+        self.num_layers = int(num_layers)
+        self.num_heads = int(num_heads)
+        self.num_kv_heads = int(num_kv_heads
+                                if num_kv_heads is not None else num_heads)
+        _group_size(self.num_heads, self.num_kv_heads)  # typed raise
+        self.head_dim = int(head_dim)
+        shape = (self.num_layers, self.num_kv_heads, self.num_pages,
+                 self.page_size, self.head_dim)
+        self.k_pages = torch.zeros(shape, dtype=torch.float32,
+                                   device=self.device)
+        self.v_pages = torch.zeros(shape, dtype=torch.float32,
+                                   device=self.device)
+        # LIFO free list: recently freed pages are reused first
+        self._free: List[int] = list(range(self.num_pages - 1, -1, -1))
+        self._tables: Dict[int, SequenceHandle] = {}
+        self._stats = {"page_allocs": 0, "page_frees": 0, "token_appends": 0,
+                       "used_pages_high_water": 0}
+
+    # -- sizing ---------------------------------------------------------
+
+    @classmethod
+    def pages_needed(cls, tokens: int, page_size: int) -> int:
+        """ceil(tokens / page_size) — the admission controller's unit."""
+        return -(-int(tokens) // int(page_size))
+
+    def bytes_per_page(self) -> int:
+        """One page's K+V bytes over all layers."""
+        return (2 * self.num_layers * self.page_size * self.num_kv_heads
+                * self.head_dim * self.k_pages.element_size())
+
+    # -- lifecycle ------------------------------------------------------
+
+    def allocate(self, seq_id: int) -> SequenceHandle:
+        """Register a sequence with an empty page table."""
+        if seq_id in self._tables:
+            raise ValueError(f"sequence {seq_id} already allocated")
+        h = SequenceHandle(seq_id)
+        self._tables[seq_id] = h
+        return h
+
+    def free_seq(self, seq_id: int) -> int:
+        """Retire a sequence: its pages return to the free list.  Returns
+        the number of pages released."""
+        h = self._tables.pop(seq_id)
+        self._free.extend(reversed(h.pages))
+        self._stats["page_frees"] += len(h.pages)
+        return len(h.pages)
+
+    def scrub_seq_pages(self, seq_id: int) -> int:
+        """Zero a live sequence's page content — the quarantine path calls
+        this before free_seq so non-finite K/V never reaches the next
+        owner of the page.  Returns how many pages were scrubbed."""
+        pages = self._tables[seq_id].pages
+        if pages:
+            idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+            self.k_pages[:, :, idx] = 0
+            self.v_pages[:, :, idx] = 0
+        return len(pages)
+
+    def append_token(self, seq_ids: Sequence[int]
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Claim the next (page, slot) for one new token on every sequence.
+        Returns (pages [B], slots [B]) int32.  Raises PagePoolExhausted
+        before mutating any table."""
+        return self.append_tokens(seq_ids, [1] * len(seq_ids))
+
+    def append_tokens(self, seq_ids: Sequence[int], counts: Sequence[int]
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+        """Claim (page, slot)s for counts[i] new tokens on sequence i in ONE
+        atomic step.  Returns (pages [T], slots [T]) int32 flattened in
+        (sequence order, token order).  Raises PagePoolExhausted before
+        mutating any table."""
+        counts = [int(c) for c in counts]
+        if len(counts) != len(seq_ids) or any(c < 0 for c in counts):
+            raise ValueError("counts must align with seq_ids and be >= 0")
+        need = 0
+        for s, c in zip(seq_ids, counts):
+            h = self._tables[s]
+            free_slots = h.capacity(self.page_size) - h.length
+            if c > free_slots:
+                need += self.pages_needed(c - free_slots, self.page_size)
+        if need > len(self._free):
+            raise PagePoolExhausted(
+                f"pool: need {need} fresh pages for "
+                f"{sum(counts)} appends but only {len(self._free)} free of "
+                f"{self.num_pages}")
+        pages = np.empty(sum(counts), np.int32)
+        slots = np.empty(sum(counts), np.int32)
+        i = 0
+        for s, c in zip(seq_ids, counts):
+            h = self._tables[s]
+            for _ in range(c):
+                if h.length == h.capacity(self.page_size):
+                    h.pages.append(self._free.pop())
+                    self._stats["page_allocs"] += 1
+                pages[i] = h.pages[-1]
+                slots[i] = h.length % self.page_size
+                h.length += 1
+                i += 1
+        self._stats["token_appends"] += sum(counts)
+        self._stats["used_pages_high_water"] = max(
+            self._stats["used_pages_high_water"], self.used_pages)
+        return pages, slots
+
+    def write_kv(self, layer: int, pages, slots, k: torch.Tensor,
+                 v: torch.Tensor) -> None:
+        """Write token K/V for ``layer`` in place: k/v [T, H_kv, D] into the
+        claimed (page, slot)s (distinct pairs, as append_tokens returns
+        them)."""
+        pg = torch.as_tensor(pages, device=self.device).long()
+        sl = torch.as_tensor(slots, device=self.device).long()
+        # torch keeps `pages, slots` adjacent after the head slice: the
+        # indexed view is [H, T, D] (module docstring)
+        self.k_pages[layer][:, pg, sl] = k.transpose(0, 1)
+        self.v_pages[layer][:, pg, sl] = v.transpose(0, 1)
+
+    # -- read side ------------------------------------------------------
+
+    def page_table_batch(self, seq_ids: Sequence[int]
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+        """(tables [B, max_pages] int32 padded with page 0 — the length
+        mask hides the tail — and lengths [B] int32)."""
+        handles = [self._tables[s] for s in seq_ids]
+        maxp = max((len(h.pages) for h in handles), default=1) or 1
+        tables = np.zeros((len(handles), maxp), np.int32)
+        lengths = np.empty(len(handles), np.int32)
+        for i, h in enumerate(handles):
+            tables[i, :len(h.pages)] = h.pages
+            lengths[i] = h.length
+        return tables, lengths
+
+    def length(self, seq_id: int) -> int:
+        return self._tables[seq_id].length
+
+    # -- accounting -----------------------------------------------------
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return self.num_pages - len(self._free)
+
+    def stats(self) -> Dict[str, int]:
+        return dict(self._stats, used_pages=self.used_pages,
+                    free_pages=self.free_pages, num_pages=self.num_pages,
+                    live_sequences=len(self._tables))
+
+    def check_invariants(self) -> Dict:
+        """Audit page ownership: every page id is either on the free list
+        exactly once or in exactly one page table, and every table's
+        length fits its pages with no spare whole page.  Returns a report
+        dict — ``ok`` plus the violating page / sequence ids."""
+        owners = [0] * self.num_pages
+        double: List[int] = []
+        mismatches: List[int] = []
+        for h in self._tables.values():
+            for p in h.pages:
+                if not 0 <= p < self.num_pages:
+                    double.append(p)
+                    continue
+                owners[p] += 1
+            cap = h.capacity(self.page_size)
+            if h.length > cap or cap - h.length >= self.page_size:
+                mismatches.append(h.seq_id)
+        free_errors: List[int] = []
+        seen_free = set()
+        for p in self._free:
+            if p in seen_free or not 0 <= p < self.num_pages:
+                free_errors.append(p)
+                continue
+            seen_free.add(p)
+            if owners[p]:
+                double.append(p)  # free AND owned
+        double += [p for p in range(self.num_pages) if owners[p] > 1]
+        orphaned = [p for p in range(self.num_pages)
+                    if not owners[p] and p not in seen_free]
+        return {
+            "ok": not (orphaned or double or free_errors or mismatches),
+            "orphaned_pages": orphaned,
+            "double_owned_pages": sorted(set(double)),
+            "free_list_errors": free_errors,
+            "length_mismatches": mismatches,
+            "used_pages": self.used_pages,
+            "live_sequences": len(self._tables),
+        }
