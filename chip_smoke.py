@@ -11,10 +11,15 @@ prints no final result line):
 1. The card's name and power limit (``nvidia-smi``), then the build of
    every CUDA kernel from ``paddle_tpu_torch/kernels/csrc`` (one ``nvcc``
    per source, all started together) with its seconds and ptxas report.
-2. Kernel parity at the serving path's shapes: ``flash_fwd`` against
+2. Kernel parity, fp32 with TF32 off: ``flash_fwd`` against
    ``reference_attention`` and ``paged_decode`` against
-   ``paged_decode_reference``, fp32 with TF32 off, max abs error <= 1e-4.
-3. The main path at the Transformer-base width (vocab 10000, d_model 512,
+   ``paged_decode_reference`` at the serving path's shapes (max abs error
+   <= 1e-4); then flash_fwd's lse output, ``flash_bwd_dq`` and
+   ``flash_bwd_dkv`` against ``flash_attention_fwd_reference`` /
+   ``flash_attention_bwd_reference`` at the training shape and the edges
+   (head_dim 64 and 128, causal and not, ragged lengths with a 0 row, S
+   off the tile, Sk > Sq), max abs error <= 1e-4 * max(1, max |plain|).
+3. Serving at the Transformer-base width (vocab 10000, d_model 512,
    8 heads, 6 layers, d_inner 2048, max_length 256; random weights from a
    seed): ``ContinuousBatchingLoop.run`` on 16 requests (prompts of 16-128
    tokens, 32 new tokens each, max_batch 8, page_size 16).  The launch
@@ -26,12 +31,27 @@ prints no final result line):
    top-2 logit margin is under the tolerance (reported).  One more run
    under ``torch.profiler`` gives the device busy time by kernel and the
    busy share of the counted run's wall time.
-4. Times from CUDA events (median of 30 after warm-up, the launches queued
+4. Training through the fluid entry points: ``TransformerConfig()`` with
+   flash attention on and dropout off, ``MomentumOptimizer(1e-4,
+   0.9).minimize``, ``Executor().run(startup)``, then ten
+   ``Executor.run(main)`` steps on one fixed 32 x 256 batch.  The flash
+   counters, zeroed just before the steps, must read 18 per step for
+   each of flash_fwd, flash_bwd_dq and flash_bwd_dkv; every loss must be
+   finite and the last below the first; the peak of allocated device
+   memory over the steps is reported.  One more step under
+   ``torch.profiler`` gives the device busy share and time by kernel.
+   Then the startup state runs one batch-2 step on the card and on a
+   ``CPUPlace`` executor (plain versions): the loss must agree within
+   1e-4 relative; every param@GRAD's max abs error within 2e-3 *
+   max(1, max |grad|), and its norm of error within 1e-2 of its own
+   norm (floored at 1e-4 of the largest leaf's, for the key biases,
+   whose exact gradient is 0).
+5. Times from CUDA events (median of 30 after warm-up, the launches queued
    behind a device sleep so host overhead stays out): each kernel, its
    plain version, its bound (bytes over 3.35 TB/s or fp32 flops over
    67 TFLOP/s, the larger) and one PyTorch library call for the same
-   function (SDPA), plus the end-to-end generated tokens/s and the
-   median prefill and decode step times.
+   function (SDPA, forward or backward); the backward kernels and
+   flash_fwd with lse at the training shape.
 
 Each phase prints one JSON line; the line before the last is the
 ``kernels`` summary and the last line is exactly
@@ -157,6 +177,73 @@ def phase_parity(torch):
     bad = [c for c in cases if not c["max_abs_err"] <= PARITY_TOL]
     if bad:
         raise AssertionError(f"kernel parity beyond {PARITY_TOL}: {bad}")
+    return {k: max(v) for k, v in errs.items()}
+
+
+# (name, B, H, Sq, Sk, D, causal, k_lengths): the training shape first (the
+# decoder's causal self-attention and the non-causal encoder/cross
+# attention, ragged lengths as synthetic_batch draws them), then the edges
+TRAIN_LENS = [256, 128, 200, 255, 131, 177, 256, 140] * 4
+BWD_CASES = [
+    ("train_causal", 32, 8, 256, 256, 64, True, TRAIN_LENS),
+    ("train_noncausal", 32, 8, 256, 256, 64, False, TRAIN_LENS),
+    ("zero_len_ragged_tile", 3, 8, 100, 100, 64, True, [100, 0, 37]),
+    ("noncausal_d128_ragged_tile", 2, 4, 70, 70, 128, False, [70, 9]),
+    ("causal_d128_zero_len", 2, 4, 130, 130, 128, True, [0, 77]),
+    ("cached_keys", 2, 8, 20, 150, 64, True, [150, 61]),
+]
+
+
+def phase_bwd_parity(torch):
+    """flash_fwd's lse output and the two backward kernels against their
+    plain versions.  The bound is relative to the plain values' scale:
+    max abs error <= PARITY_TOL * max(1, max |plain|).  A fully masked row
+    must give lse = +1e30 exactly, and dQ = 0."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    rng = torch.Generator(device=dev).manual_seed(SEED + 2)
+    cases, errs = [], {"flash_fwd": [], "flash_bwd_dq": [],
+                       "flash_bwd_dkv": []}
+
+    def record(kernel, name, got, want):
+        err = float((got - want).abs().max())
+        bound = PARITY_TOL * max(1.0, float(want.abs().max()))
+        cases.append({"kernel": kernel, "case": name, "max_abs_err": err,
+                      "bound": bound})
+        errs[kernel].append(err)
+
+    for name, B, H, Sq, Sk, D, causal, lens in BWD_CASES:
+        q = torch.randn(B, H, Sq, D, generator=rng, device=dev)
+        k = torch.randn(B, H, Sk, D, generator=rng, device=dev)
+        v = torch.randn(B, H, Sk, D, generator=rng, device=dev)
+        dout = torch.randn(B, H, Sq, D, generator=rng, device=dev)
+        kl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        scale = D ** -0.5
+        out, lse = fa.flash_attention_fwd(q, k, v, causal, scale, kl)
+        want_out, want_lse = fa.flash_attention_fwd_reference(
+            q, k, v, causal, scale, kl)
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, kl, out, lse, dout,
+                                            causal, scale)
+        want = fa.flash_attention_bwd_reference(q, k, v, kl, want_out,
+                                                want_lse, dout, causal, scale)
+        torch.cuda.synchronize()
+        live = want_lse < 1e29
+        if not bool((lse[~live] == -fa.NEG_INF).all()):
+            raise AssertionError(f"{name}: a fully masked row's lse is not "
+                                 "+1e30")
+        if 0 in lens and not bool((dq[lens.index(0)] == 0).all()):
+            raise AssertionError(f"{name}: a fully masked row's dQ is not 0")
+        record("flash_fwd", name + "/out", out, want_out)
+        record("flash_fwd", name + "/lse", lse[live], want_lse[live])
+        record("flash_bwd_dq", name, dq, want[0])
+        record("flash_bwd_dkv", name + "/dk", dk, want[1])
+        record("flash_bwd_dkv", name + "/dv", dv, want[2])
+    emit({"phase": "bwd_parity", "tolerance": "max abs err <= "
+          f"{PARITY_TOL} * max(1, max |plain|)", "cases": cases})
+    bad = [c for c in cases if not c["max_abs_err"] <= c["bound"]]
+    if bad:
+        raise AssertionError(f"backward parity beyond its bound: {bad}")
     return {k: max(v) for k, v in errs.items()}
 
 
@@ -327,17 +414,217 @@ def _trace(torch, serving, model, cfg, reqs, unprofiled_wall):
     busy_s = sum(by_name.values()) / 1e6
     if not busy_s:
         raise AssertionError("the profiler saw no device time")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     attention_us = sum(us for k, us in by_name.items()
                        if "flash_fwd" in k or "paged_decode" in k)
     return {"traced_wall_s": wall, "device_busy_s": busy_s,
             "busy_share": busy_s / unprofiled_wall,
             "attention_share_of_busy": attention_us / 1e6 / busy_s,
-            "device_ms_by_kernel": {k[:80]: us / 1e3 for k, us in top},
+            "device_ms_by_kernel": _top_kernels(by_name, 8),
             "attention_ms": attention_us / 1e3}
 
 
-# -- phase 4 --------------------------------------------------------------
+# -- phase 4: training -----------------------------------------------------
+
+# TransformerConfig() defaults (the base model, vocab 10000) with the
+# flash-attention path on and dropout off; Momentum as bench.py builds it
+TRAIN_CFG = dict(use_flash_attention=True, dropout=0.0)
+TRAIN_BATCH, TRAIN_STEPS, PARITY_BATCH = 32, 10, 2
+LR, MOMENTUM = 1e-4, 0.9
+LOSS_RTOL = 1e-4       # card vs CPU loss, relative
+GRAD_TOL = 2e-3        # card vs CPU grads: max abs err <= GRAD_TOL*max(1, max|g|)
+GRAD_NORM_RTOL = 1e-2  # and |a - b| / |b| per leaf (Frobenius norms) ...
+GRAD_FLOOR = 1e-4      # ... with |b| floored at GRAD_FLOOR * the largest leaf's
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _flash_counts(fa):
+    return {"flash_fwd": fa.flash_attention.launches,
+            "flash_bwd_dq": fa.flash_bwd_dq.launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+
+
+def _zero_flash_counts(fa):
+    fa.flash_attention.launches = 0
+    fa.flash_bwd_dq.launches = 0
+    fa.flash_bwd_dkv.launches = 0
+
+
+def build_training(fluid):
+    from paddle_tpu_torch.models.transformer import (
+        TransformerConfig,
+        transformer,
+    )
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        spec = transformer(TransformerConfig(**TRAIN_CFG))
+        _, params_grads = fluid.optimizer.MomentumOptimizer(
+            learning_rate=LR, momentum=MOMENTUM).minimize(spec.loss)
+    return main, startup, spec, params_grads
+
+
+def _persistables(program, scope):
+    """{name: host array} of every persistable the startup program made."""
+    return {n: scope.find_var(n).cpu().numpy()
+            for n, v in program.desc.block(0).vars.items() if v.persistable}
+
+
+def phase_training(torch, np):
+    """The fluid entry points on the card: layers -> Momentum.minimize ->
+    Executor.run(startup) -> Executor.run(main) for TRAIN_STEPS steps on
+    one fixed batch.  Each attention op is one flash_fwd launch forward
+    and one flash_bwd_dq plus one flash_bwd_dkv launch backward: 18 of
+    each per step (6 encoder self, 6 decoder self, 6 cross)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    main, startup, spec, params_grads = build_training(fluid)
+    cfg = spec.extras["config"]
+    n_attn = 3 * cfg.n_layer
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    init_state = _persistables(startup, scope)
+    n_params = sum(int(np.prod(p.shape)) for p, _ in params_grads)
+    batch = spec.synthetic_batch(TRAIN_BATCH, seed=SEED)
+    tokens = TRAIN_BATCH * cfg.max_length
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_counts(fa)
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss, = exe.run(main, feed=batch, fetch_list=[spec.loss],
+                        scope=scope)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss.reshape(-1)[0]))
+    launches = _flash_counts(fa)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = {k: n_attn * TRAIN_STEPS for k in FLASH_KERNELS}
+    if launches != want:
+        raise AssertionError(f"training launches {launches} != {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    step_med = statistics.median(step_s)
+    trace = _trace_training(torch, exe, main, spec, batch, scope, step_med)
+    parity = _card_vs_cpu(torch, np, fluid, main, spec, params_grads,
+                          init_state)
+    emit({"phase": "training", "config": dict(
+        cfg.__dict__), "optimizer": {"type": "momentum", "lr": LR,
+                                     "momentum": MOMENTUM},
+          "batch": [TRAIN_BATCH, cfg.max_length], "params": n_params,
+          "main_ops": len(main.desc.block(0).ops),
+          "startup_ops": len(startup.desc.block(0).ops),
+          "steps": TRAIN_STEPS, "losses": losses, "step_s": step_s,
+          "step_ms_median": 1e3 * step_med,
+          "tokens_per_s": tokens / step_med, "peak_alloc_gib": peak_gib,
+          "launches": launches,
+          "launches_per_step": {k: v // TRAIN_STEPS
+                                for k, v in launches.items()},
+          "trace": trace, "card_vs_cpu": parity})
+    return launches, batch, cfg
+
+
+def _top_kernels(by_name, n):
+    """The n largest device times in ms by kernel name, names cut to 160
+    characters; names that the cut makes equal are summed, not dropped."""
+    ms = {}
+    for name, us in by_name.items():
+        ms[name[:160]] = ms.get(name[:160], 0.0) + us / 1e3
+    return dict(sorted(ms.items(), key=lambda kv: -kv[1])[:n])
+
+
+def _trace_training(torch, exe, main, spec, batch, scope, step_wall):
+    """One more step under torch.profiler: device busy time from the
+    device's own events (kernels, copies, fills) only, against the
+    median unprofiled step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exe.run(main, feed=batch, fetch_list=[spec.loss], scope=scope)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {e.key: e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    busy_s = sum(by_name.values()) / 1e6
+    if not busy_s:
+        raise AssertionError("the profiler saw no device time")
+    flash_us = {k: sum(us for name, us in by_name.items() if k in name)
+                for k in FLASH_KERNELS}
+    return {"traced_wall_s": wall, "device_busy_s": busy_s,
+            "busy_share": busy_s / step_wall,
+            "flash_ms": {k: us / 1e3 for k, us in flash_us.items()},
+            "flash_share_of_busy": sum(flash_us.values()) / 1e6 / busy_s,
+            "device_ms_by_kernel": _top_kernels(by_name, 40)}
+
+
+def _card_vs_cpu(torch, np, fluid, main, spec, params_grads, init_state):
+    """The startup state on the card and on a CPUPlace executor (plain
+    versions), one step at PARITY_BATCH on each: the loss and every
+    param@GRAD must agree (TF32 is off)."""
+    batch = spec.synthetic_batch(PARITY_BATCH, seed=SEED + 1)
+    fetch = [spec.loss] + [g for _, g in params_grads]
+    got = {}
+    for place in ("card", "cpu"):
+        exe = fluid.Executor(None if place == "card" else fluid.CPUPlace())
+        scope = fluid.Scope()
+        exe.load_state(init_state, scope)
+        got[place] = exe.run(main, feed=batch, fetch_list=fetch, scope=scope)
+    loss_card, loss_cpu = (float(got[p][0].reshape(-1)[0])
+                           for p in ("card", "cpu"))
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    # Two gates.  The first, max abs error against max(1, max |g|), is
+    # loose where gradients are far below 1, as here.  The second holds
+    # each leaf to its own norm, so a wrong dQ, dK or dV fails on the
+    # attention projections.  It uses norms, not max abs errors: a ReLU
+    # input within rounding of 0 takes the other branch on one side and
+    # moves a few entries by a whole term, which is not a fault.  The
+    # floor is for the key biases, whose exact gradient is 0 (softmax does
+    # not change when one bias is added to every key): their values are
+    # rounding noise on both sides.  The floored leaves are reported.
+    norms = [float(np.linalg.norm(b)) for b in got["cpu"][1:]]
+    floor = GRAD_FLOOR * max(norms)
+    worst = worst_rel = 0.0
+    worst_name = worst_rel_name = None
+    rels, floored = [], []
+    for (p, g), a, b, norm in zip(params_grads, got["card"][1:],
+                                  got["cpu"][1:], norms):
+        ratio = float(np.abs(a - b).max()) / (
+            GRAD_TOL * max(1.0, float(np.abs(b).max())))
+        if ratio > worst:
+            worst, worst_name = ratio, g.name
+        if norm < floor:
+            floored.append(g.name)
+        rel = float(np.linalg.norm(a - b)) / max(norm, floor)
+        rels.append((rel, g.name, norm, float(np.abs(b).max())))
+        if rel > worst_rel:
+            worst_rel, worst_rel_name = rel, g.name
+    above = sorted(n for n in norms if n >= floor)
+    out = {"batch": PARITY_BATCH, "loss_card": loss_card,
+           "loss_cpu": loss_cpu, "loss_rel_err": loss_rel,
+           "loss_rtol": LOSS_RTOL, "grads": len(params_grads),
+           "grad_tol": f"max abs err <= {GRAD_TOL} * max(1, max |cpu grad|)",
+           "worst_grad": worst_name, "worst_grad_err_over_bound": worst,
+           "grad_norm_tol": (f"|card - cpu| <= {GRAD_NORM_RTOL} * max(|cpu|,"
+                             f" {GRAD_FLOOR} * the largest leaf's |cpu|)"),
+           "worst_grad_norm_rel_err": worst_rel,
+           "worst_grad_norm": worst_rel_name,
+           "top3_norm_rel_err_norm_maxabs": sorted(rels, reverse=True)[:3],
+           "floor": floor, "floored": floored,
+           "norm_min_median_max_above_floor": [
+               above[0], above[len(above) // 2], above[-1]]}
+    if (not loss_rel <= LOSS_RTOL or not worst <= 1.0
+            or not worst_rel <= GRAD_NORM_RTOL):
+        raise AssertionError(f"card vs CPU beyond tolerance: {out}")
+    return out
+
+
+# -- phase 5: timing -------------------------------------------------------
 
 def device_ms(torch, fn, reps=30, warmup=5):
     """Median device time of fn() over `reps` calls, each bracketed by CUDA
@@ -430,6 +717,87 @@ def phase_timing(torch, np, reqs, parity_err, launches):
     return kernels
 
 
+def phase_train_timing(torch, bwd_err, launches, cfg, batch):
+    """The two backward kernels, and flash_fwd with its lse output, at the
+    training shape of the decoder's causal self-attention: [B, H, S, D] =
+    [TRAIN_BATCH, 8, 256, 64], k_lengths from the fixed batch's target
+    rows.  Bounds count each input read once (K and V rows up to each
+    row's length) and each output written once, and the fp32 flops of the
+    visible (query, key) pairs: 4*D forward, 6*D dq (S, dP, dQ), 8*D dkv
+    (S, dP, dK, dV).  The plain time of both backward rows is
+    flash_attention_bwd_reference, which computes dQ, dK and dV together;
+    so is the library call, SDPA's backward through a boolean mask."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    rng = torch.Generator(device=dev).manual_seed(SEED + 3)
+    B, H, S = TRAIN_BATCH, cfg.n_head, cfg.max_length
+    D = cfg.d_model // H
+    scale = D ** -0.5
+    lens = [int(n) for n in (batch["trg_word"] != cfg.pad_idx).sum(axis=1)]
+    q, k, v, dout = (torch.randn(B, H, S, D, generator=rng, device=dev)
+                     for _ in range(4))
+    kl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    pos = torch.arange(S, device=dev)
+    mask = ((pos[None, :] < kl[:, None].long())[:, None, None, :]
+            & (pos[None, :] <= pos[:, None])[None, None])
+    pairs = H * sum(sum(min(n, i + 1) for i in range(S)) for n in lens)
+    full, kv_rows, rows = B * H * S * D, H * D * sum(lens), B * H * S
+    out, lse = fa.flash_attention_fwd(q, k, v, True, scale, kl)
+    dvec = (dout * out).sum(dim=-1)
+    plain_bwd = device_ms(torch, lambda: fa.flash_attention_bwd_reference(
+        q, k, v, kl, out, lse, dout, True, scale))
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                              scale=scale)
+    sdpa_bwd = device_ms(torch, lambda: torch.autograd.grad(
+        sdpa_out, (qg, kg, vg), dout, retain_graph=True))
+    shape = {"B": B, "H": H, "S": S, "D": D, "causal": True,
+             "k_lengths": lens}
+    rows_out = [
+        _row("flash_bwd_dq", "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
+             "paddle_tpu/kernels/flash_attention.py:391",
+             launches["flash_bwd_dq"], bwd_err["flash_bwd_dq"],
+             device_ms(torch, lambda: fa.flash_bwd_dq(
+                 q, k, v, dout, lse, dvec, kl, True, scale)),
+             plain_bwd, 4 * (3 * full + 2 * kv_rows + 2 * rows + B),
+             6 * D * pairs, sdpa_bwd, shape),
+        _row("flash_bwd_dkv", "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
+             "paddle_tpu/kernels/flash_attention.py:409",
+             launches["flash_bwd_dkv"], bwd_err["flash_bwd_dkv"],
+             device_ms(torch, lambda: fa.flash_bwd_dkv(
+                 q, k, v, dout, lse, dvec, kl, True, scale)),
+             plain_bwd, 4 * (4 * full + 2 * kv_rows + 2 * rows + B),
+             8 * D * pairs, sdpa_bwd, shape)]
+    fwd = _row("flash_fwd", "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
+               "paddle_tpu/kernels/flash_attention.py:317",
+               launches["flash_fwd"], bwd_err["flash_fwd"],
+               device_ms(torch, lambda: fa.flash_attention_fwd(
+                   q, k, v, True, scale, kl)),
+               device_ms(torch, lambda: fa.flash_attention_fwd_reference(
+                   q, k, v, True, scale, kl)),
+               4 * (2 * full + 2 * kv_rows + rows + B), 4 * D * pairs,
+               device_ms(torch, lambda: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=mask, scale=scale)), shape)
+    emit({"phase": "train_timing", "method": "CUDA events, median of 30 "
+          "after 5 warm-up calls, queued behind torch.cuda._sleep",
+          "shape": shape, "library_call": "SDPA with a boolean causal+"
+          "padding mask (forward); its backward through autograd.grad, one "
+          "time for dQ, dK and dV together (backward rows)",
+          "plain_call": "flash_attention_bwd_reference, dQ, dK and dV "
+          "together (backward rows)",
+          "flash_fwd_with_lse": {k: fwd[k] for k in (
+              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+          "rows": [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}
+                   for r in rows_out]})
+    for r in rows_out:
+        r.pop("shape")
+    return rows_out
+
+
 def _row(name, source, replaces, launches, err, ms, plain_ms, nbytes, flops,
          library_ms, shape):
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
@@ -456,8 +824,18 @@ def main() -> int:
     print(card_line(), flush=True)
     phase_build()
     parity_err = phase_parity(torch)
-    launches, reqs = phase_main_path(torch, np)
-    kernels = phase_timing(torch, np, reqs, parity_err, launches)
+    bwd_err = phase_bwd_parity(torch)
+    serve_launches, reqs = phase_main_path(torch, np)
+    train_launches, batch, cfg = phase_training(torch, np)
+    kernels = phase_timing(torch, np, reqs, parity_err, serve_launches)
+    kernels += phase_train_timing(torch, bwd_err, train_launches, cfg, batch)
+    # flash_fwd runs on both paths: its launches are the two runs' sum
+    kernels[0]["launches"] += train_launches["flash_fwd"]
+    kernels[0]["launches_by_path"] = {
+        "serving": serve_launches["flash_fwd"],
+        "training": train_launches["flash_fwd"]}
+    kernels[0]["max_abs_err"] = max(parity_err["flash_fwd"],
+                                    bwd_err["flash_fwd"])
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
-// flash_fwd.cu — forward (inference) flash attention, fp32, for sm_90a.
+// flash_fwd.cu — forward flash attention, fp32, for sm_90a.
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py, the pallas_call built by
-// `_fwd_call` (line 317) with body `_flash_kernel_fwd_only` -> `_flash_kernel`
-// (emit_lse=False, the variant prefill_step reaches through flash_attention).
+// `_fwd_call` (line 317) with body `_flash_kernel` (and its fwd-only variant
+// `_flash_kernel_fwd_only`).  A null `lse` pointer is the fwd-only variant
+// (serving's prefill); a non-null one also writes the per-row logsumexp the
+// backward kernels (flash_bwd.cu) rebuild P from, as emit_lse=True does.
 //
 // Computes o = softmax(q k^T * scale + mask) v on [B, H, S, D] fp32 tensors,
 // with the TPU kernel's masking contract:
@@ -11,7 +13,10 @@
 //     sees keys j <= i + Sk - Sq;
 //   - a fully masked row returns zeros: the running max starts at NEG_INF/2,
 //     so a masked score (NEG_INF) gives exp(NEG_INF - NEG_INF/2) = 0, l stays
-//     0 and the output is acc / max(l, 1e-30) = 0 (never the mean of V).
+//     0 and the output is acc / max(l, 1e-30) = 0 (never the mean of V);
+//   - lse[r] = m + log(l) for a row with a visible key, and -NEG_INF = +1e30
+//     for a fully masked row (l == 0), as the TPU kernel writes it: the
+//     backward's exp(S - lse) then underflows to exactly 0 on that row.
 //
 // Design.  One thread block per (b*h, 64-query tile): 256 threads as a 16x16
 // grid, thread (ty, tx) owning query rows ty + 16i and key columns tx + 16j
@@ -60,7 +65,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v,
                  const int* __restrict__ k_lengths, float* __restrict__ o,
-                 int H, int Sq, int Sk, float scale, int causal) {
+                 float* __restrict__ lse, int H, int Sq, int Sk, float scale,
+                 int causal) {
   constexpr int DC = D / 16;  // output columns per thread
   constexpr int D4 = D / 4;
   extern __shared__ float smem[];
@@ -192,13 +198,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DC; ++c)
       ob[(size_t)r * D + tx + 16 * c] = acc[i][c] / denom;
+    if (lse != nullptr && tx == 0)  // m, l are equal across the 16 lanes
+      lse[(size_t)bh * Sq + r] = l[i] > 0.f ? m[i] + logf(denom) : -NEG_INF;
   }
 }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v,
-           const int* k_lengths, float* o, int B, int H, int Sq, int Sk,
-           float scale, int causal, cudaStream_t stream) {
+           const int* k_lengths, float* o, float* lse, int B, int H, int Sq,
+           int Sk, float scale, int causal, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -206,26 +214,29 @@ int launch(const float* q, const float* k, const float* v,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
-      q, k, v, k_lengths, o, H, Sq, Sk, scale, causal);
+      q, k, v, k_lengths, o, lse, H, Sq, Sk, scale, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q [B,H,Sq,D], k/v [B,H,Sk,D], o [B,H,Sq,D]: contiguous fp32 on the device.
-// k_lengths [B] int32 on the device.  Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for an unsupported head_dim).
+// k_lengths [B] int32 on the device.  lse [B,H,Sq] fp32, or null to skip it.
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
+// unsupported head_dim).
 extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v,
-                             const int* k_lengths, float* o, int B, int H,
-                             int Sq, int Sk, int D, float scale, int causal,
-                             void* stream) {
+                             const int* k_lengths, float* o, float* lse,
+                             int B, int H, int Sq, int Sk, int D, float scale,
+                             int causal, void* stream) {
   if (B * H == 0 || Sq == 0) return 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch<64>(q, k, v, k_lengths, o, B, H, Sq, Sk, scale, causal, st);
+      return launch<64>(q, k, v, k_lengths, o, lse, B, H, Sq, Sk, scale,
+                        causal, st);
     case 128:
-      return launch<128>(q, k, v, k_lengths, o, B, H, Sq, Sk, scale, causal, st);
+      return launch<128>(q, k, v, k_lengths, o, lse, B, H, Sq, Sk, scale,
+                         causal, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

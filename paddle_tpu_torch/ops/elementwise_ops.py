@@ -1,0 +1,22 @@
+"""Elementwise binary ops with fluid broadcasting (counterpart of
+paddle_tpu/ops/elementwise_ops.py): Y broadcasts as a contiguous sub-shape
+of X anchored at ``axis``."""
+
+from __future__ import annotations
+
+from ..core.registry import register_op
+from .common import broadcast_y, elemwise_shape
+
+
+def _make(name, fn):
+    @register_op(name, infer_shape=elemwise_shape)
+    def _lower(ctx, ins, attrs, _fn=fn):
+        x, y = ins["X"][0], ins["Y"][0]
+        return {"Out": [_fn(x, broadcast_y(x, y, attrs.get("axis", -1)))]}
+
+    return _lower
+
+
+_make("elementwise_add", lambda x, y: x + y)
+_make("elementwise_mul", lambda x, y: x * y)
+_make("elementwise_div", lambda x, y: x / y)

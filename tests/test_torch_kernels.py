@@ -18,6 +18,7 @@ by O(0.1).
 
 import importlib
 
+import jax
 import numpy as np
 import pytest
 
@@ -134,6 +135,110 @@ def test_launch_error_codes_raise():
     _build.check(0, "flash_fwd")
     with pytest.raises(_build.KernelLaunchError, match="cudaError_t 9"):
         _build.check(9, "flash_fwd")
+
+
+# -- flash backward ------------------------------------------------------
+
+# (causal, Sq, Sk, k_lengths): as _FLASH_CASES, plus Sq > Sk, where the
+# bottom-right causal frontier masks whole query rows
+_BWD_CASES = {
+    **_FLASH_CASES,
+    "causal_more_queries_than_keys": (True, 41, 9, [9, 3, 0]),
+}
+
+
+def _jax_lse(q, k, v, kl, causal, scale):
+    """The JAX forward's lse, unpacked from its [B*H, nqb, bq] residual
+    layout (flash_attention.py:76-95) to [B, H, Sq]."""
+    B, H, Sq, _ = q.shape
+    klf = np.full(B, k.shape[2], np.float32) if kl is None else kl.astype(
+        np.float32)
+    _, lse = jflash._pallas_flash(q, k, v, klf, causal, scale,
+                                  interpret=True, need_lse=True)
+    return np.asarray(lse).reshape(B * H, -1)[:, :Sq].reshape(B, H, Sq)
+
+
+@pytest.mark.parametrize("case", sorted(_BWD_CASES))
+def test_fwd_reference_out_and_lse_match_jax_interpret(case):
+    causal, Sq, Sk, klen = _BWD_CASES[case]
+    rng = np.random.RandomState(20 + sorted(_BWD_CASES).index(case))
+    q, k, v = _qkv(rng, 3, 2, Sq, Sk, 16)
+    scale = 16 ** -0.5
+    kl = None if klen is None else np.asarray(klen, np.int32)
+    out, lse = tflash.flash_attention_fwd_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal, scale, None if kl is None else torch.from_numpy(kl))
+    want_out = np.asarray(jflash.flash_attention(
+        q, k, v, causal=causal, scale=scale, k_lengths=kl,
+        force="interpret"))
+    want_lse = _jax_lse(q, k, v, kl, causal, scale)
+    np.testing.assert_allclose(out.numpy(), want_out, **TOL)
+    np.testing.assert_allclose(lse.numpy(), want_lse, **TOL)
+    # a fully masked row: lse = +1e30, so exp(S - lse) is 0 in backward
+    assert (lse.numpy()[want_lse > 1e29] == 1e30).all()
+
+
+@pytest.mark.parametrize("case", sorted(_BWD_CASES))
+def test_bwd_reference_matches_jax_pallas_kernels_in_interpret(case):
+    """jax.grad through flash_attention(force='interpret') runs the
+    Pallas dq and dkv kernels (the interpret-mode backward); the port's
+    plain backward formula must give the same dQ, dK, dV."""
+    causal, Sq, Sk, klen = _BWD_CASES[case]
+    rng = np.random.RandomState(40 + sorted(_BWD_CASES).index(case))
+    q, k, v = _qkv(rng, 3, 2, Sq, Sk, 16)
+    dout = rng.standard_normal(q.shape).astype(np.float32)
+    scale = 16 ** -0.5
+    kl = None if klen is None else np.asarray(klen, np.int32)
+    _, vjp = jax.vjp(lambda a, b, c: jflash.flash_attention(
+        a, b, c, causal=causal, scale=scale, k_lengths=kl,
+        force="interpret"), q, k, v)
+    want = [np.asarray(g) for g in vjp(dout)]
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    tkl = None if kl is None else torch.from_numpy(kl)
+    out, lse = tflash.flash_attention_fwd_reference(tq, tk, tv, causal,
+                                                    scale, tkl)
+    got = tflash.flash_attention_bwd_reference(
+        tq, tk, tv, tkl, out, lse, torch.from_numpy(dout), causal, scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), w, err_msg=name, **TOL)
+    if kl is not None and (kl == 0).any():
+        assert np.all(got[0].numpy()[kl == 0] == 0.0)  # dQ of a 0 row
+
+
+def test_autograd_through_flash_attention_takes_the_plain_backward():
+    """With inputs that require a gradient, flash_attention is the
+    autograd Function: on CPU tensors its backward is
+    flash_attention_bwd_reference exactly, and no kernel is counted."""
+    rng = np.random.RandomState(9)
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _qkv(rng, 2, 2, 19, 19, 8))
+    dout = torch.from_numpy(rng.standard_normal((2, 2, 19, 8)).astype(
+        np.float32))
+    kl = torch.tensor([19, 6], dtype=torch.int32)
+    before = (tflash.flash_attention.launches, tflash.flash_bwd_dq.launches,
+              tflash.flash_bwd_dkv.launches)
+    out = tflash.flash_attention(q, k, v, causal=True, scale=0.4,
+                                 k_lengths=kl)
+    out.backward(dout)
+    ref_out, lse = tflash.flash_attention_fwd_reference(
+        q.detach(), k.detach(), v.detach(), True, 0.4, kl)
+    want = tflash.flash_attention_bwd_reference(
+        q.detach(), k.detach(), v.detach(), kl, ref_out, lse, dout, True,
+        0.4)
+    assert torch.equal(out.detach(), ref_out)
+    for t, w in zip((q, k, v), want):
+        assert torch.equal(t.grad, w)
+    assert (tflash.flash_attention.launches, tflash.flash_bwd_dq.launches,
+            tflash.flash_bwd_dkv.launches) == before
+
+
+def test_backward_wrappers_refuse_devices_other_than_cuda_and_cpu():
+    q = torch.zeros(1, 1, 4, 64, device="meta")
+    lse = torch.zeros(1, 1, 4, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tflash.flash_attention_bwd(q, q, q, None, q, lse, q, True, 0.125)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tflash.flash_attention_fwd(q, q, q, True, 0.125)
 
 
 # -- paged decode --------------------------------------------------------
