@@ -46,12 +46,42 @@ prints no final result line):
    max(1, max |grad|), and its norm of error within 1e-2 of its own
    norm (floored at 1e-4 of the largest leaf's, for the key biases,
    whose exact gradient is 0).
-5. Times from CUDA events (median of 30 after warm-up, the launches queued
+5. ResNet-50 training through the fluid entry points, conv tier:
+   ``resnet_imagenet(depth=50, fuse_bn="conv")`` at full width (224 x
+   224, 1000 classes), ``MomentumOptimizer(0.1, 0.9).minimize``,
+   ``Executor().run(startup)``, then ten steps on one fixed batch of 256
+   from ``class_batch`` (seed 0).  Before it, conv-epilogue parity at
+   batch 4 and at the steps' batch of 256: ``conv_stats`` and
+   ``bn_epilogue`` against their plain versions on every conv shape class
+   the program has (and one off the tiles: C, F and M not multiples of
+   64), conv output and y within 1e-4 * max(1, max |plain|), the channel
+   sums within 1e-4 of the vector's largest.  The counters, zeroed just
+   before the steps, must read 53 per step for each kernel, and
+   conv_stats's count by shape the program's; losses finite and the last
+   below the first;
+   the layout copies the wrappers made per step are reported, and the
+   peak allocated memory.  One more step under ``torch.profiler``.  Then
+   one batch-2 step from the startup state on the card, on a ``CPUPlace``
+   executor, and on the CPU through the same program in float64 (the
+   image fed as float64): the loss and every op's MeanOut / VarianceOut
+   within 1e-4 of the CPU's (relative; the statistics to each vector's
+   largest entry).  The gradients are ill-conditioned in fp32 at this
+   depth — the CPU's own fp32 run lies 20 times phase 4's max-abs bound and
+   3% in norm from float64 — so the card's gradients must lie no farther
+   from the float64 ones than 3 times the CPU's fp32 gradients do, over
+   all leaves and for the worst leaf; phase 4's two gates are reported,
+   and each run's distance from float64 by stage and by op from the loss
+   end.  The card then runs the step again with a planted forward fault,
+   bn_epilogue's inv scaled by 1.01 (and by 1.001, reported only): the
+   gradient gate must fail it.
+6. Times from CUDA events (median of 30 after warm-up, the launches queued
    behind a device sleep so host overhead stays out): each kernel, its
    plain version, its bound (bytes over 3.35 TB/s or fp32 flops over
    67 TFLOP/s, the larger) and one PyTorch library call for the same
-   function (SDPA, forward or backward); the backward kernels and
-   flash_fwd with lse at the training shape.
+   function (SDPA, forward or backward; cuDNN's conv2d plus var_mean; the
+   batch_norm + add + relu chain); the backward kernels and flash_fwd
+   with lse at the training shape; conv_stats at the shapes of kernel
+   rows 5 and 6, bn_epilogue at row 7's.
 
 Each phase prints one JSON line; the line before the last is the
 ``kernels`` summary and the last line is exactly
@@ -436,6 +466,17 @@ GRAD_NORM_RTOL = 1e-2  # and |a - b| / |b| per leaf (Frobenius norms) ...
 GRAD_FLOOR = 1e-4      # ... with |b| floored at GRAD_FLOOR * the largest leaf's
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
+# ResNet-50, conv tier, as bench.py builds it (bench.py:167, :178, :327-329)
+RESNET_CFG = dict(depth=50, class_num=1000, img_shape=(3, 224, 224),
+                  fuse_bn="conv")
+RESNET_BATCH, RESNET_STEPS, RESNET_LR = 256, 10, 0.1
+CONV_PARITY_BATCH = 4
+STATS_RTOL = 1e-4      # card vs CPU MeanOut / VarianceOut, vs max |cpu|
+SPREAD = 3.0           # card vs fp64: at most this times the CPU fp32 distance
+FAULTS = (1e-2, 1e-3)  # planted forward faults: bn_epilogue's inv * (1 + d);
+                       # the first must fail the SPREAD gate
+CONV_KERNELS = ("conv_stats", "bn_epilogue")
+
 
 def _flash_counts(fa):
     return {"flash_fwd": fa.flash_attention.launches,
@@ -624,7 +665,387 @@ def _card_vs_cpu(torch, np, fluid, main, spec, params_grads, init_state):
     return out
 
 
-# -- phase 5: timing -------------------------------------------------------
+# -- phase 5: ResNet-50 training --------------------------------------------
+
+def build_resnet(fluid, img_dtype=None):
+    """(main, startup, spec, params_grads) of ResNet-50 + Momentum, under
+    fresh name counters so an fp32 and a float64 build name every
+    variable alike."""
+    from paddle_tpu_torch.core.framework import unique_name_guard
+    from paddle_tpu_torch.models import resnet_imagenet
+
+    main, startup = fluid.Program(), fluid.Program()
+    with unique_name_guard(), fluid.program_guard(main, startup):
+        img = (None if img_dtype is None else fluid.layers.data(
+            "image", list(RESNET_CFG["img_shape"]), dtype=img_dtype))
+        spec = resnet_imagenet(img=img, **RESNET_CFG)
+        _, params_grads = fluid.optimizer.MomentumOptimizer(
+            learning_rate=RESNET_LR, momentum=MOMENTUM).minimize(spec.loss)
+    return main, startup, spec, params_grads
+
+
+def conv_classes(main, batch):
+    """The program's conv_bn_add_act ops as distinct shape classes:
+    {(N, H, W, C, F, K, stride, padding, residual, act): ops per step},
+    with N = batch."""
+    block = main.desc.block(0)
+    classes = {}
+    for op in block.ops:
+        if op.type != "conv_bn_add_act":
+            continue
+        _, C, H, W = block.vars[op.inputs["X"][0]].shape
+        Fo, _, K, _ = block.vars[op.inputs["Filter"][0]].shape
+        key = (batch, H, W, C, Fo, K, op.attrs["strides"][0],
+               op.attrs["paddings"][0], bool(op.inputs.get("Z")),
+               op.attrs.get("act") or "")
+        classes[key] = classes.get(key, 0) + 1
+    return classes
+
+
+def _conv_inputs(torch, rng, N, H, W, C, Fo, K, dev):
+    """Post-ReLU-like x (uniform [0, 1), as the fed image too), the
+    layer's N(0, 2 / fan_in) weights, gamma in [0.5, 1.5), beta standard
+    normal."""
+    x = torch.rand(N, H, W, C, generator=rng, device=dev)
+    w = torch.randn(K, K, C, Fo, generator=rng, device=dev) * (
+        2.0 / (K * K * C)) ** 0.5
+    gamma = torch.rand(Fo, generator=rng, device=dev) + 0.5
+    beta = torch.randn(Fo, generator=rng, device=dev)
+    return x, w, gamma, beta
+
+
+def phase_conv_parity(torch, fluid):
+    """conv_stats and bn_epilogue against their plain versions, each on
+    the same inputs, at every conv shape class of the ResNet-50 program at
+    full width — at batch 4 and at the main path's batch — and one case
+    off the tiles."""
+    from paddle_tpu_torch.kernels import conv_epilogue as ce
+
+    dev = torch.device("cuda")
+    rng = torch.Generator(device=dev).manual_seed(SEED + 4)
+    main = build_resnet(fluid)[0]
+    cases = [k for n in (CONV_PARITY_BATCH, RESNET_BATCH)
+             for k in sorted(conv_classes(main, n))]
+    cases.append((3, 13, 11, 37, 70, 3, 1, 1, True, "relu"))  # off the tiles
+    out_rows, errs = [], {k: [] for k in CONV_KERNELS}
+
+    def record(kernel, case, what, got, want, scale):
+        err = float((got - want).abs().max())
+        bound = PARITY_TOL * scale
+        out_rows.append({"kernel": kernel, "case": case, "what": what,
+                         "max_abs_err": err, "bound": bound})
+        if what in ("out", "y"):  # the kernels line reports these
+            errs[kernel].append(err)
+
+    for N, H, W, C, Fo, K, s, p, res, act in cases:
+        name = f"{N}x{H}x{W}x{C}->{Fo} k{K}s{s}p{p}{' +z' if res else ''}" \
+               f"{' relu' if act else ''}"
+        x, w, gamma, beta = _conv_inputs(torch, rng, N, H, W, C, Fo, K, dev)
+        out, ssum, ssq = ce.conv_stats(x, w, s, p)
+        pout, psum, pssq = ce.conv_stats_reference(x, w, s, p)
+        del x, w
+        count = pout.shape[0] * pout.shape[1] * pout.shape[2]
+        mean = psum / count
+        var = torch.clamp(pssq / count - mean * mean, min=0.0)
+        inv = torch.rsqrt(var + 1e-5)
+        record("conv_stats", name, "out", out, pout,
+               max(1.0, float(pout.abs().max())))
+        record("conv_stats", name, "sum", ssum, psum, float(psum.abs().max()))
+        record("conv_stats", name, "sumsq", ssq, pssq,
+               float(pssq.abs().max()))
+        del out
+        z = torch.randn(pout.shape, generator=rng, device=dev) if res else None
+        y = ce.bn_epilogue(pout, mean, inv, gamma, beta, z, act)
+        py = ce.bn_epilogue_reference(pout, mean, inv, gamma, beta, z, act)
+        record("bn_epilogue", name, "y", y, py,
+               max(1.0, float(py.abs().max())))
+        del pout, z, y, py
+    torch.cuda.empty_cache()
+    emit({"phase": "conv_parity", "tolerance": f"max abs err <= {PARITY_TOL}"
+          f" * max(1, max |plain|) (out, y); <= {PARITY_TOL} * max |plain| "
+          "(sum, sumsq)", "batches": [CONV_PARITY_BATCH, RESNET_BATCH],
+          "cases": out_rows})
+    bad = [r for r in out_rows if not r["max_abs_err"] <= r["bound"]]
+    if bad:
+        raise AssertionError(f"conv-epilogue parity beyond its bound: {bad}")
+    return {k: max(v) for k, v in errs.items()}
+
+
+def _conv_counts(ce):
+    return {"conv_stats": ce.conv_stats.launches,
+            "bn_epilogue": ce.bn_epilogue.launches}
+
+
+def phase_resnet(torch, np, fluid):
+    """The fluid entry points on the card: resnet_imagenet ->
+    Momentum.minimize -> Executor.run(startup) -> Executor.run(main) for
+    RESNET_STEPS steps on one fixed batch.  Each of the 53
+    conv_bn_add_act ops launches conv_stats and bn_epilogue once a step
+    (the backward is plain torch and cuDNN)."""
+    from paddle_tpu_torch.kernels import conv_epilogue as ce
+
+    main, startup, spec, params_grads = build_resnet(fluid)
+    n_conv = sum(conv_classes(main, RESNET_BATCH).values())
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    init_state = _persistables(startup, scope)
+    n_params = sum(int(np.prod(p.shape)) for p, _ in params_grads)
+    batch = spec.synthetic_batch(RESNET_BATCH, seed=SEED)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ce.conv_stats.launches = ce.bn_epilogue.launches = 0
+    ce.conv_stats.launches_by_shape.clear()
+    ce.conv_bn_act.layout_copies = 0
+    losses, step_s = [], []
+    for _ in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        loss, = exe.run(main, feed=batch, fetch_list=[spec.loss],
+                        scope=scope)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss.reshape(-1)[0]))
+    launches = _conv_counts(ce)
+    by_shape = dict(ce.conv_stats.launches_by_shape)
+    copies = ce.conv_bn_act.layout_copies
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = {k: n_conv * RESNET_STEPS for k in CONV_KERNELS}
+    if n_conv != 53 or launches != want:
+        raise AssertionError(f"resnet launches {launches} != {want} "
+                             f"({n_conv} conv ops)")
+    want_by_shape = {}  # conv_stats's shape key: (N, H, W, C, F, K, s, p)
+    for key, n in conv_classes(main, RESNET_BATCH).items():
+        want_by_shape[key[:8]] = want_by_shape.get(key[:8], 0) + (
+            n * RESNET_STEPS)
+    if by_shape != want_by_shape:
+        raise AssertionError(f"conv_stats launches by shape {by_shape} != "
+                             f"the program's {want_by_shape}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    step_med = statistics.median(step_s)
+    trace = _trace_resnet(torch, exe, main, spec, batch, scope, step_med)
+    del scope
+    torch.cuda.empty_cache()
+    parity = _resnet_card_vs_cpu(np, fluid, main, spec, params_grads,
+                                 init_state)
+    emit({"phase": "resnet_training", "config": {
+        k: list(v) if isinstance(v, tuple) else v
+        for k, v in RESNET_CFG.items()},
+          "optimizer": {"type": "momentum", "lr": RESNET_LR,
+                        "momentum": MOMENTUM},
+          "batch": RESNET_BATCH, "params": n_params,
+          "main_ops": len(main.desc.block(0).ops),
+          "startup_ops": len(startup.desc.block(0).ops),
+          "steps": RESNET_STEPS, "losses": losses, "step_s": step_s,
+          "step_ms_median": 1e3 * step_med,
+          "images_per_s": RESNET_BATCH / step_med, "peak_alloc_gib": peak_gib,
+          "launches": launches,
+          "launches_per_step": {k: v / RESNET_STEPS
+                                for k, v in launches.items()},
+          "conv_stats_launches_by_shape": [
+              {"x": list(k[:4]), "F": k[4], "K": k[5], "stride": k[6],
+               "padding": k[7], "launches": n}
+              for k, n in sorted(by_shape.items())],
+          "layout_copies_per_step": copies / RESNET_STEPS,
+          "trace": trace, "card_vs_cpu": parity})
+    return launches, by_shape, trace
+
+
+def _trace_resnet(torch, exe, main, spec, batch, scope, step_wall):
+    """One more step under torch.profiler: device busy time from the
+    device's own events only; each conv kernel's summed ms (conv_stats is
+    its GEMM and its partial-sum reduction)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exe.run(main, feed=batch, fetch_list=[spec.loss], scope=scope)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {e.key: e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    busy_s = sum(by_name.values()) / 1e6
+    if not busy_s:
+        raise AssertionError("the profiler saw no device time")
+    marks = {"conv_stats": ("conv_stats_kernel", "stats_reduce_kernel"),
+             "bn_epilogue": ("bn_epilogue",)}
+    own_us = {k: sum(us for name, us in by_name.items()
+                     if any(m in name for m in ms))
+              for k, ms in marks.items()}
+    return {"traced_wall_s": wall, "device_busy_s": busy_s,
+            "busy_share": busy_s / step_wall,
+            "kernel_ms_per_step": {k: us / 1e3 for k, us in own_us.items()},
+            "kernels_share_of_busy": sum(own_us.values()) / 1e6 / busy_s,
+            "device_ms_by_kernel": _top_kernels(by_name, 40)}
+
+
+def _distances(np, got, want):
+    """(norm of all errors over norm of all leaves, worst leaf's norm
+    error over its own norm floored at GRAD_FLOOR of the largest)."""
+    norms = [float(np.linalg.norm(w)) for w in want]
+    floor = GRAD_FLOOR * max(norms)
+    errs = [float(np.linalg.norm(np.asarray(g, np.float64) - w))
+            for g, w in zip(got, want)]
+    total = (sum(e * e for e in errs) / sum(n * n for n in norms)) ** 0.5
+    worst = max(zip((e / max(n, floor) for e, n in zip(errs, norms)),
+                    range(len(errs))))
+    return float(total), worst[0], worst[1]
+
+
+def _phase4_gates(np, got, want):
+    """Phase 4's gradient gates as ratios: the worst max abs error over
+    GRAD_TOL * max(1, max |want|), and the worst norm error over the
+    leaf's norm floored at GRAD_FLOOR of the largest."""
+    norms = [float(np.linalg.norm(b)) for b in want]
+    floor = GRAD_FLOOR * max(norms)
+    maxabs = max(float(np.abs(a - b).max())
+                 / (GRAD_TOL * max(1.0, float(np.abs(b).max())))
+                 for a, b in zip(got, want))
+    norm = max(float(np.linalg.norm(a - b)) / max(n, floor)
+               for a, b, n in zip(got, want, norms))
+    return {"maxabs_err_over_bound": maxabs, "worst_norm_rel_err": norm}
+
+
+def _op_of(name):
+    """The op index of a gradient leaf (conv_bn_add_act_<i>), -1 for fc."""
+    head = name.split(".")[0]
+    return -1 if head.startswith("fc_") else int(head.rsplit("_", 1)[1])
+
+
+def _stage(op):
+    """ResNet-50's stage of op index ``op``: fc, res5 ... res2, stem."""
+    for stage, last in (("fc", -1), ("stem", 0), ("res2", 10),
+                        ("res3", 23), ("res4", 42)):
+        if op <= last:
+            return stage
+    return "res5"
+
+
+def _by(np, key, gnames, got, want):
+    """Per group of leaves (``key`` of the op index), from the loss end:
+    the norm of the group's errors over the norm of its leaves."""
+    err, norm = {}, {}
+    for n, g, w in sorted(zip(gnames, got, want), key=lambda t: (
+            -_op_of(t[0]) if _op_of(t[0]) >= 0 else -1e9)):
+        k = key(_op_of(n))
+        err[k] = err.get(k, 0.0) + float(np.sum(
+            (np.asarray(g, np.float64) - w) ** 2))
+        norm[k] = norm.get(k, 0.0) + float(np.sum(np.square(w, dtype=float)))
+    return {k: (err[k] / norm[k]) ** 0.5 for k in err}
+
+
+def _planted_fault(plain, d):
+    """bn_epilogue with its inv scaled by 1 + d: a forward fault (the
+    backward still takes the true inv)."""
+    def bn_epilogue(out, mean, inv, *args):
+        return plain(out, mean, inv * (1.0 + d), *args)
+    bn_epilogue.launches = 0  # plain's body counts under the module name
+    return bn_epilogue
+
+
+def _resnet_card_vs_cpu(np, fluid, main, spec, params_grads, init_state):
+    """One PARITY_BATCH step from the startup state on the card, on the
+    CPU executor, and on the CPU through the float64 build of the same
+    program.  The loss and the moving statistics are held to the CPU's
+    fp32 values; the gradients to the CPU fp32 run's own distance from
+    float64 (module docstring, phase 5), with each run's distance by
+    stage and by op from the loss end.  Then the card runs again with
+    each planted fault of FAULTS, and the first must fail the gradient
+    gate."""
+    from paddle_tpu_torch.kernels import conv_epilogue as ce
+
+    batch = spec.synthetic_batch(PARITY_BATCH, seed=SEED + 1)
+    stats = sorted(n for n in init_state if ".mean_" in n or ".var_" in n)
+    gnames = [g.name for _, g in params_grads]
+    fetch = [spec.loss.name] + gnames + stats
+    main64, _, spec64, _ = build_resnet(fluid, "float64")
+    feed64 = {k: v.astype(np.float64) if v.dtype == np.float32 else v
+              for k, v in batch.items()}
+    runs = [("card", main, batch), ("cpu", main, batch),
+            ("cpu64", main64, feed64)]
+    runs += [(d, main, batch) for d in FAULTS]
+    plain = ce.bn_epilogue
+    got = {}
+    for place, prog, feed in runs:
+        exe = fluid.Executor(fluid.CPUPlace() if place in ("cpu", "cpu64")
+                             else None)
+        scope = fluid.Scope()
+        exe.load_state(init_state, scope)
+        if place in FAULTS:
+            ce.bn_epilogue = _planted_fault(plain, place)
+        try:
+            vals = exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+        finally:
+            ce.bn_epilogue = plain
+        got[place] = {"loss": float(vals[0].reshape(-1)[0]),
+                      "grads": vals[1:1 + len(gnames)],
+                      "stats": vals[1 + len(gnames):]}
+    card, cpu, exact = got["card"], got["cpu"], got["cpu64"]
+
+    def loss_rel(run):
+        return abs(run["loss"] - cpu["loss"]) / abs(cpu["loss"])
+
+    def stats_rel(run):
+        return max((float(np.abs(a - b).max()) / float(np.abs(b).max()), n)
+                   for n, a, b in zip(stats, run["stats"], cpu["stats"]))
+
+    d_card = _distances(np, card["grads"], exact["grads"])
+    d_cpu = _distances(np, cpu["grads"], exact["grads"])
+
+    def within_spread(d):
+        return d[0] <= SPREAD * d_cpu[0] and d[1] <= SPREAD * d_cpu[1]
+
+    faults = {}
+    for d in FAULTS:
+        dist = _distances(np, got[d]["grads"], exact["grads"])
+        faults[f"inv*(1+{d:g})"] = {
+            "loss_rel_err": loss_rel(got[d]),
+            "stats_worst_rel_err": stats_rel(got[d])[0],
+            "grad_dist_vs_fp64": dist[:2],
+            "over_cpu_fp32": (dist[0] / d_cpu[0], dist[1] / d_cpu[1]),
+            "grad_gate_passes": within_spread(dist)}
+    stat = stats_rel(card)
+    out = {"batch": PARITY_BATCH, "loss_card": card["loss"],
+           "loss_cpu": cpu["loss"], "loss_cpu64": exact["loss"],
+           "loss_rel_err": loss_rel(card), "loss_rtol": LOSS_RTOL,
+           "stats": len(stats), "stats_worst_rel_err": stat[0],
+           "stats_worst": stat[1], "stats_rtol": STATS_RTOL,
+           "grads": len(gnames),
+           "grad_gate": f"card's distance from float64 <= {SPREAD} x the "
+                        "CPU fp32 run's, all leaves and worst leaf",
+           "grad_dist_card_vs_fp64": {"all": d_card[0], "worst_leaf":
+                                      d_card[1],
+                                      "worst": gnames[d_card[2]]},
+           "grad_dist_cpu_vs_fp64": {"all": d_cpu[0], "worst_leaf": d_cpu[1],
+                                     "worst": gnames[d_cpu[2]]},
+           "card_over_cpu_fp32": (d_card[0] / d_cpu[0],
+                                  d_card[1] / d_cpu[1]),
+           "grad_dist_vs_fp64_by_stage": {
+               k: _by(np, _stage, gnames, got[k]["grads"], exact["grads"])
+               for k in ("cpu", "card")},
+           "grad_dist_vs_fp64_by_op": {
+               k: _by(np, int, gnames, got[k]["grads"], exact["grads"])
+               for k in ("cpu", "card")},
+           "planted_faults": faults,
+           # phase 4's two gradient gates, reported, not gated on: the
+           # CPU's own fp32 run does not meet them against float64
+           "phase4_gates_card_vs_cpu": _phase4_gates(np, card["grads"],
+                                                     cpu["grads"]),
+           "phase4_gates_cpu_vs_fp64": _phase4_gates(np, cpu["grads"],
+                                                     exact["grads"])}
+    if (not loss_rel(card) <= LOSS_RTOL or not stat[0] <= STATS_RTOL
+            or not within_spread(d_card)):
+        raise AssertionError(f"resnet card vs CPU beyond tolerance: {out}")
+    if faults[f"inv*(1+{FAULTS[0]:g})"]["grad_gate_passes"]:
+        raise AssertionError(f"the gradient gate let a planted fault "
+                             f"through: {faults}")
+    return out
+
+
+# -- phase 6: timing -------------------------------------------------------
 
 def device_ms(torch, fn, reps=30, warmup=5):
     """Median device time of fn() over `reps` calls, each bracketed by CUDA
@@ -798,6 +1219,117 @@ def phase_train_timing(torch, bwd_err, launches, cfg, batch):
     return rows_out
 
 
+def _conv_stats_work(N, H, W, C, Fo, K, s, p):
+    """(bytes, flops) of conv_stats: x, w read and out, sum, sumsq written
+    once; 2 flops per tap of every output, 3 per output for the sums."""
+    Ho, Wo = (H + 2 * p - K) // s + 1, (W + 2 * p - K) // s + 1
+    M = N * Ho * Wo
+    return (4 * (N * H * W * C + K * K * C * Fo + M * Fo + 2 * Fo),
+            2 * M * K * K * C * Fo + 3 * M * Fo)
+
+
+def _tpu_row(key):
+    """The TPU kernel a conv_stats launch of shape key (N, H, W, C, F, K,
+    stride, padding) replaces: stride-1 convs with K > 1 took the
+    in-kernel halo kernel (row 5), the others the host-padded one (row 6)."""
+    return 5 if key[6] == 1 and key[5] > 1 else 6
+
+
+def phase_conv_timing(torch, conv_err, launches, by_shape, trace):
+    """conv_stats at kernel row 5's shape (3x3/1 pad 1 [256, 56, 56, 64]
+    -> 64) and row 6's (1x1/1 [256, 56, 56, 64] -> 256, the 7x7/2 pad 3
+    stem [256, 224, 224, 3] -> 64); bn_epilogue at row 7's ([256, 56, 56,
+    256] with the residual, relu).  Library calls: F.conv2d (cuDNN, TF32
+    off) then torch.var_mean over its output; F.batch_norm with the batch
+    statistics, + z, relu_.  Launches are the ResNet phase's counts: by
+    TPU row, and at the timed shape."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import conv_epilogue as ce
+
+    dev = torch.device("cuda")
+    rng = torch.Generator(device=dev).manual_seed(SEED + 5)
+    by_row = {5: 0, 6: 0}
+    for key, n in by_shape.items():
+        by_row[_tpu_row(key)] += n
+    conv_rows = [("row 5: 3x3/1 pad 1", (RESNET_BATCH, 56, 56, 64, 64, 3, 1,
+                                          1)),
+                 ("row 6: 1x1/1", (RESNET_BATCH, 56, 56, 64, 256, 1, 1, 0)),
+                 ("row 6: 7x7/2 pad 3 stem", (RESNET_BATCH, 224, 224, 3, 64,
+                                               7, 2, 3))]
+    rows = []
+    for label, key in conv_rows:
+        N, H, W, C, Fo, K, s, p = key
+        x, w, _, _ = _conv_inputs(torch, rng, N, H, W, C, Fo, K, dev)
+        xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+        nbytes, flops = _conv_stats_work(N, H, W, C, Fo, K, s, p)
+        rows.append(_row(
+            "conv_stats", "paddle_tpu_torch/kernels/csrc/conv_epilogue.cu",
+            "paddle_tpu/kernels/conv_epilogue.py:"
+            + ("347" if _tpu_row(key) == 5 else "383"),
+            by_row[_tpu_row(key)], conv_err["conv_stats"],
+            device_ms(torch, lambda: ce.conv_stats(x, w, s, p)),
+            device_ms(torch, lambda: ce.conv_stats_reference(x, w, s, p)),
+            nbytes, flops,
+            device_ms(torch, lambda: torch.var_mean(
+                F.conv2d(xn, wn, stride=s, padding=p), dim=(0, 2, 3),
+                unbiased=False)),
+            {"row": label, "x": [N, H, W, C], "w": [K, K, C, Fo],
+             "stride": s, "padding": p,
+             "launches_at_this_shape": by_shape.get(key, 0),
+             "library_call": "F.conv2d + torch.var_mean"}))
+        del x, w, xn, wn
+    N, H, W, Fo = RESNET_BATCH, 56, 56, 256
+    out = torch.randn(N, H, W, Fo, generator=rng, device=dev)
+    z = torch.randn(N, H, W, Fo, generator=rng, device=dev)
+    var, mean = torch.var_mean(out, dim=(0, 1, 2), unbiased=False)
+    inv = torch.rsqrt(var + 1e-5)
+    gamma = torch.rand(Fo, generator=rng, device=dev) + 0.5
+    beta = torch.randn(Fo, generator=rng, device=dev)
+    on, zn = out.permute(0, 3, 1, 2), z.permute(0, 3, 1, 2)
+    epi = _row(
+        "bn_epilogue", "paddle_tpu_torch/kernels/csrc/conv_epilogue.cu",
+        "paddle_tpu/kernels/conv_epilogue.py:412",
+        launches["bn_epilogue"], conv_err["bn_epilogue"],
+        device_ms(torch, lambda: ce.bn_epilogue(out, mean, inv, gamma, beta,
+                                                z, "relu")),
+        device_ms(torch, lambda: ce.bn_epilogue_reference(
+            out, mean, inv, gamma, beta, z, "relu")),
+        4 * (3 * out.numel() + 4 * Fo), 6 * out.numel(),
+        device_ms(torch, lambda: torch.relu_(F.batch_norm(
+            on, mean, var, gamma, beta, False, 0.0, 1e-5) + zn)),
+        {"row": "row 7", "out": [N, H, W, Fo], "residual": True,
+         "act": "relu",
+         "library_call": "F.batch_norm(training=False) + z, relu_"})
+    emit({"phase": "conv_timing", "method": "CUDA events, median of 30 "
+          "after 5 warm-up calls, queued behind torch.cuda._sleep",
+          "library_call": {"conv_stats": "F.conv2d (cuDNN, TF32 off) + "
+                           "torch.var_mean over its output",
+                           "bn_epilogue": "F.batch_norm(batch stats, "
+                           "training=False) + z, relu_"},
+          "plain_call": {"conv_stats": "conv_stats_reference",
+                         "bn_epilogue": "bn_epilogue_reference"},
+          "device_ms_per_step_in_the_profiled_step":
+              trace["kernel_ms_per_step"],
+          "launches_counted_over": f"{RESNET_STEPS} steps",
+          "rows": [{k: r[k] for k in ("name", "replaces", "launches", "ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms", "shape")}
+                   for r in rows + [epi]]})
+    first = dict(rows[0])
+    first["launches"] = launches["conv_stats"]
+    first["replaces"] = ("paddle_tpu/kernels/conv_epilogue.py:347 and :383 "
+                         "(rows 5 and 6)")
+    first["rows"] = [{k: r[k] for k in ("replaces", "launches", "ms",
+                                        "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms", "shape")}
+                     for r in rows]
+    for r in (first, epi):
+        r.pop("shape")
+        r["launches_by_path"] = {"resnet_training": r["launches"]}
+    return [first, epi]
+
+
 def _row(name, source, replaces, launches, err, ms, plain_ms, nbytes, flops,
          library_ms, shape):
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
@@ -817,7 +1349,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device — this script runs on the card",
               file=sys.stderr)
         return 2
-    import paddle_tpu_torch  # noqa: F401  (fails at once outside a checkout)
+    import paddle_tpu_torch as fluid  # (fails at once outside a checkout)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -825,10 +1357,15 @@ def main() -> int:
     phase_build()
     parity_err = phase_parity(torch)
     bwd_err = phase_bwd_parity(torch)
+    conv_err = phase_conv_parity(torch, fluid)
     serve_launches, reqs = phase_main_path(torch, np)
     train_launches, batch, cfg = phase_training(torch, np)
+    torch.cuda.empty_cache()
+    conv_launches, by_shape, trace = phase_resnet(torch, np, fluid)
     kernels = phase_timing(torch, np, reqs, parity_err, serve_launches)
     kernels += phase_train_timing(torch, bwd_err, train_launches, cfg, batch)
+    kernels += phase_conv_timing(torch, conv_err, conv_launches, by_shape,
+                                 trace)
     # flash_fwd runs on both paths: its launches are the two runs' sum
     kernels[0]["launches"] += train_launches["flash_fwd"]
     kernels[0]["launches_by_path"] = {

@@ -8,9 +8,11 @@ Gradient ops keep the reference's contract — gradients are ops in the
 program, with no per-op gradient code.  The JAX compiler stashes a
 ``jax.vjp`` closure per forward op; the counterpart here is:
 
-- a forward op whose ``__op_uid__`` some grad op names runs its rule on
-  detached, ``requires_grad`` copies of its float inputs, under grad mode,
-  and stashes (inputs, outputs) — the autograd graph of that one op;
+- a forward op whose ``__op_uid__`` some grad op names runs its rule
+  under grad mode on its inputs, detached, with ``requires_grad`` set on
+  the float ones that grad op writes a gradient for (so no kernel computes
+  a gradient nobody reads, e.g. the fed image's), and stashes (inputs,
+  outputs) — the autograd graph of that one op;
 - its ``<type>_grad`` op calls ``torch.autograd.grad`` on the stashed
   outputs with the ``<slot>@GRAD`` cotangents of the environment;
 - a non-float input, or one the op's outputs do not depend on, gets zeros
@@ -80,20 +82,24 @@ def _bind_outputs(ctx: LoweringContext, op: OpDesc,
                 ctx.env[name] = val
 
 
-def _run_forward_op(ctx: LoweringContext, op: OpDesc, need_grad: bool):
+def _run_forward_op(ctx: LoweringContext, op: OpDesc,
+                    wanted: Optional[Set[tuple]]):
+    """``wanted``: the (slot, pos) inputs whose gradients the op's grad op
+    writes; None when no grad op names this op."""
     info = OpRegistry.get(op.type)
     ctx.op = op
     ins = {slot: [ctx.lookup(n) for n in names]
            for slot, names in op.inputs.items()}
     attrs = dict(op.attrs)
-    if not need_grad or info.no_grad:
+    if wanted is None or info.no_grad:
         with torch.no_grad():
             _bind_outputs(ctx, op, info.lower(ctx, ins, attrs))
         return
     leaves = {}
     for slot, row in ins.items():
         for pos, v in enumerate(row):
-            if v is not None and v.is_floating_point():
+            if ((slot, pos) in wanted and v is not None
+                    and v.is_floating_point()):
                 row[pos] = leaves[(slot, pos)] = v.detach().requires_grad_()
     with torch.enable_grad():
         outs = info.lower(ctx, ins, attrs)
@@ -159,8 +165,14 @@ def run_block(ctx: LoweringContext, ops: Sequence[OpDesc],
     """Run ``ops`` in order against ``ctx.env``; ``keep`` names the vars
     the caller reads afterwards (fetches, scope state)."""
     ctx.reads = set(keep).union(*(_names_looked_up(op) for op in ops))
-    need_grad = {op.attrs["__fwd_op_uid__"] for op in ops
-                 if "__fwd_op_uid__" in op.attrs}
+    wanted: Dict[int, Set[tuple]] = {}
+    for op in ops:
+        if "__fwd_op_uid__" in op.attrs:
+            wanted.setdefault(op.attrs["__fwd_op_uid__"], set()).update(
+                (slot[:-len(GRAD_SUFFIX)], pos)
+                for slot, names in op.outputs.items()
+                if slot.endswith(GRAD_SUFFIX)
+                for pos, name in enumerate(names) if name)
     for op in ops:
         if op.type in _SKIP_OPS:
             continue
@@ -169,5 +181,4 @@ def run_block(ctx: LoweringContext, ops: Sequence[OpDesc],
         elif not OpRegistry.has(op.type):
             raise NotImplementedError(f"op '{op.type}' has no torch rule")
         else:
-            _run_forward_op(ctx, op,
-                            op.attrs.get("__op_uid__") in need_grad)
+            _run_forward_op(ctx, op, wanted.get(op.attrs.get("__op_uid__")))

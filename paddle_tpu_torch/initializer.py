@@ -1,5 +1,6 @@
 """Initializers — append init ops to the startup program (counterpart of
-paddle_tpu/initializer.py: Constant, Uniform, Xavier, NumpyArray)."""
+paddle_tpu/initializer.py: Constant, Uniform, Normal, Xavier,
+NumpyArray)."""
 
 from __future__ import annotations
 
@@ -9,9 +10,9 @@ import numpy as np
 
 from .core.proto import DataType
 
-__all__ = ["Constant", "ConstantInitializer", "Initializer",
-           "NumpyArrayInitializer", "Uniform", "UniformInitializer",
-           "Xavier", "XavierInitializer"]
+__all__ = ["Constant", "ConstantInitializer", "Initializer", "Normal",
+           "NormalInitializer", "NumpyArrayInitializer", "Uniform",
+           "UniformInitializer", "Xavier", "XavierInitializer"]
 
 
 class Initializer:
@@ -51,6 +52,17 @@ class UniformInitializer(Initializer):
                    "min": self.low, "max": self.high, "seed": self.seed})
 
 
+class NormalInitializer(Initializer):
+    def __init__(self, loc: float = 0.0, scale: float = 1.0, seed: int = 0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        return block.append_op(
+            type="gaussian_random", outputs={"Out": [var.name]},
+            attrs={"shape": list(var.shape), "dtype": int(var.dtype),
+                   "mean": self.loc, "std": self.scale, "seed": self.seed})
+
+
 class XavierInitializer(Initializer):
     """Glorot init, the uniform form (the normal one needs gaussian_random,
     not ported)."""
@@ -84,4 +96,5 @@ class NumpyArrayInitializer(Initializer):
 
 Constant = ConstantInitializer
 Uniform = UniformInitializer
+Normal = NormalInitializer
 Xavier = XavierInitializer

@@ -31,7 +31,7 @@ __all__ = ["BUILD_DIR", "KernelBuildError", "KernelLaunchError",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("flash_fwd", "flash_bwd", "paged_decode")
+SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "conv_epilogue")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

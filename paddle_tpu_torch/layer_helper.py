@@ -76,6 +76,26 @@ class LayerHelper:
                                      dtype=dtype, shape=[],
                                      stop_gradient=stop_gradient)
 
+    def set_variable_initializer(self, var: Variable, initializer) -> None:
+        startup_block = self.startup_program.global_block()
+        sv = startup_block.create_var(name=var.name, shape=list(var.shape),
+                                      dtype=var.dtype, persistable=True)
+        initializer(sv, startup_block)
+
+    def append_bias_op(self, input_var: Variable, dim_start: int = 1,
+                       dim_end=None) -> Variable:
+        bias_attr = self.bias_attr
+        if bias_attr is None:
+            return input_var
+        b = self.create_parameter(
+            bias_attr, shape=list(input_var.shape)[dim_start:dim_end],
+            dtype=input_var.dtype, is_bias=True)
+        out = self.create_variable_for_type_inference(input_var.dtype)
+        self.append_op(type="elementwise_add",
+                       inputs={"X": [input_var], "Y": [b]},
+                       outputs={"Out": [out]}, attrs={"axis": dim_start})
+        return out
+
     def append_activation(self, input_var: Variable) -> Variable:
         act = self.kwargs.get("act")
         if act is None:

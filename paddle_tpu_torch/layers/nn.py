@@ -1,5 +1,5 @@
 """Neural-network layers (counterpart of paddle_tpu/layers/nn.py): the
-functions the Transformer model calls."""
+functions the Transformer and ResNet models call."""
 
 from __future__ import annotations
 
@@ -7,12 +7,175 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from ..initializer import ConstantInitializer, XavierInitializer
+from ..core.framework import unique_name
+from ..core.proto import DataType
+from ..initializer import (ConstantInitializer, NormalInitializer,
+                           XavierInitializer)
 from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
 
-__all__ = ["elementwise_add", "elementwise_div", "elementwise_mul",
-           "embedding", "fused_attention", "layer_norm", "matmul", "relu",
-           "softmax_with_cross_entropy"]
+__all__ = ["accuracy", "conv_bn_add_act", "cross_entropy", "elementwise_add",
+           "elementwise_div", "elementwise_mul", "embedding", "fc",
+           "fused_attention", "layer_norm", "matmul", "pool2d", "relu",
+           "softmax", "softmax_with_cross_entropy", "topk"]
+
+
+def _pair(x, n=2):
+    if isinstance(x, (list, tuple)):
+        return list(x)
+    return [x] * n
+
+
+def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None,
+       bias_attr=None, act: Optional[str] = None, name: Optional[str] = None):
+    """Fully-connected layer on one input: ``mul``, the bias add and the
+    activation."""
+    helper = LayerHelper("fc", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    fan_in = int(np.prod([abs(d)
+                          for d in list(input.shape)[num_flatten_dims:]]))
+    w = helper.create_parameter(helper.param_attr, shape=[fan_in, size],
+                                dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="mul", inputs={"X": [input], "Y": [w]}, outputs={"Out": [out]},
+        attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1})
+    pre_act = helper.append_bias_op(out, dim_start=num_flatten_dims)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None):
+    helper = LayerHelper("pool2d", input=input, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="pool2d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": _pair(pool_size),
+               "strides": _pair(pool_stride),
+               "paddings": _pair(pool_padding),
+               "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+               "exclusive": exclusive})
+    return out
+
+
+def _bn_state(helper, c, dtype, param_attr, bias_attr, moving_mean_name,
+              moving_variance_name):
+    """Batch-norm parameters and state: scale (1), bias (0), the moving
+    mean (0) and variance (1) as persistable vars with startup
+    initializers, the saved statistics and the output var."""
+    scale = helper.create_parameter(
+        param_attr or ParamAttr(), shape=[c], dtype=dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(bias_attr or ParamAttr(), shape=[c],
+                                   dtype=dtype, is_bias=True)
+    block = helper.main_program.global_block()
+    mean = block.create_var(
+        name=moving_mean_name or unique_name(f"{helper.name}.mean"),
+        shape=[c], dtype=dtype, persistable=True, stop_gradient=True)
+    helper.set_variable_initializer(mean, ConstantInitializer(0.0))
+    variance = block.create_var(
+        name=moving_variance_name or unique_name(f"{helper.name}.var"),
+        shape=[c], dtype=dtype, persistable=True, stop_gradient=True)
+    helper.set_variable_initializer(variance, ConstantInitializer(1.0))
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    return scale, bias, mean, variance, saved_mean, saved_var, out
+
+
+def conv_bn_add_act(input, num_filters, filter_size, residual=None,
+                    stride=1, padding=0, groups=1, act="relu",
+                    is_test=False, momentum=0.9, epsilon=1e-5,
+                    param_attr=None, bn_param_attr=None, bn_bias_attr=None,
+                    moving_mean_name=None, moving_variance_name=None,
+                    name=None):
+    """conv2d (no bias) + batch_norm + residual + activation as one op
+    (ops/nn_ops.py ``conv_bn_add_act``).  NCHW contract, square filter,
+    stride and padding; the filter is N(0, 2 / fan_in)."""
+    helper = LayerHelper("conv_bn_add_act", input=input,
+                         param_attr=param_attr, act=None, name=name)
+    dtype = input.dtype
+    num_channels = input.shape[1]
+    fsize = _pair(filter_size)
+    if fsize[0] != fsize[1]:
+        raise ValueError("conv_bn_add_act needs a square filter")
+    if _pair(stride)[0] != _pair(stride)[1] or \
+            _pair(padding)[0] != _pair(padding)[1]:
+        raise NotImplementedError(
+            "conv_bn_add_act needs square stride/padding "
+            f"(got stride={stride}, padding={padding})")
+    fan_in = (num_channels // groups) * fsize[0] * fsize[1]
+    w = helper.create_parameter(
+        helper.param_attr, shape=[num_filters, num_channels // groups] + fsize,
+        dtype=dtype,
+        default_initializer=NormalInitializer(0.0, (2.0 / fan_in) ** 0.5))
+    scale, bias, mean, variance, saved_mean, saved_var, out = _bn_state(
+        helper, num_filters, dtype, bn_param_attr, bn_bias_attr,
+        moving_mean_name, moving_variance_name)
+    inputs = {"X": [input], "Filter": [w], "Scale": [scale], "Bias": [bias],
+              "Mean": [mean], "Variance": [variance]}
+    if residual is not None:
+        inputs["Z"] = [residual]
+    helper.append_op(
+        type="conv_bn_add_act", inputs=inputs,
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"strides": _pair(stride), "paddings": _pair(padding),
+               "groups": groups, "momentum": momentum, "epsilon": epsilon,
+               "is_test": is_test, "act": act})
+    return out
+
+
+def softmax(input, use_cudnn=True, name=None, axis=-1):
+    helper = LayerHelper("softmax", input=input, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy", input=input)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="cross_entropy", inputs={"X": [input], "Label": [label]},
+        outputs={"Y": [out]},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index})
+    return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", input=input, name=name)
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference(DataType.INT64,
+                                                        stop_gradient=True)
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    return values, indices
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """Classification accuracy: top_k, then the accuracy op."""
+    helper = LayerHelper("accuracy", input=input)
+    topk_out, topk_indices = topk(input, k=k)
+    acc_out = helper.create_variable_for_type_inference(DataType.FP32,
+                                                        stop_gradient=True)
+    correct = correct or helper.create_variable_for_type_inference(
+        DataType.INT32, stop_gradient=True)
+    total = total or helper.create_variable_for_type_inference(
+        DataType.INT32, stop_gradient=True)
+    helper.append_op(
+        type="accuracy",
+        inputs={"Out": [topk_out], "Indices": [topk_indices],
+                "Label": [label]},
+        outputs={"Accuracy": [acc_out], "Correct": [correct],
+                 "Total": [total]})
+    return acc_out
 
 
 def embedding(input, size: Sequence[int], is_sparse: bool = False,

@@ -1,0 +1,144 @@
+"""ResNet on the conv-epilogue tier (counterpart of
+paddle_tpu/models/resnet.py).
+
+Only ``fuse_bn="conv"`` is ported: every conv + batch-norm [+ residual]
+[+ ReLU] is one ``conv_bn_add_act`` op, which runs the hand-written
+conv_stats and bn_epilogue kernels.  The JAX package's other two forms
+need rules the port does not have yet: ``fuse_bn=False`` (``conv2d``,
+``batch_norm``, ``elementwise_add`` + ``relu``) and ``fuse_bn=True``
+(``conv2d``, ``fused_bn_add_act``); both raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import functools
+
+from .. import layers
+from .common import ModelSpec, class_batch
+
+__all__ = ["basicblock", "bottleneck", "conv_bn_layer", "resnet_cifar10",
+           "resnet_imagenet"]
+
+
+def _check_fuse_bn(fuse_bn) -> None:
+    if fuse_bn != "conv":
+        rules = ("conv2d and batch_norm" if not fuse_bn
+                 else "conv2d and fused_bn_add_act")
+        raise NotImplementedError(
+            f"ResNet with fuse_bn={fuse_bn!r} needs the {rules} rules, which "
+            "are not ported; use fuse_bn='conv'")
+
+
+def conv_bn_layer(input, ch_out, filter_size, stride, padding, act="relu",
+                  fuse_bn="conv"):
+    """conv -> BN (+act) as one conv_bn_add_act op."""
+    _check_fuse_bn(fuse_bn)
+    return layers.conv_bn_add_act(input, ch_out, filter_size, stride=stride,
+                                  padding=padding, act=act)
+
+
+def _shortcut(input, ch_out, stride, fuse_bn="conv"):
+    if input.shape[1] != ch_out or stride != 1:
+        return conv_bn_layer(input, ch_out, 1, stride, 0, act=None,
+                             fuse_bn=fuse_bn)
+    return input
+
+
+def basicblock(input, ch_out, stride, fuse_bn="conv"):
+    s = _shortcut(input, ch_out, stride, fuse_bn=fuse_bn)
+    conv1 = conv_bn_layer(input, ch_out, 3, stride, 1, fuse_bn=fuse_bn)
+    return layers.conv_bn_add_act(conv1, ch_out, 3, residual=s, stride=1,
+                                  padding=1, act="relu")
+
+
+def bottleneck(input, ch_out, stride, fuse_bn="conv"):
+    s = _shortcut(input, ch_out * 4, stride, fuse_bn=fuse_bn)
+    conv1 = conv_bn_layer(input, ch_out, 1, 1, 0, fuse_bn=fuse_bn)
+    conv2 = conv_bn_layer(conv1, ch_out, 3, stride, 1, fuse_bn=fuse_bn)
+    return layers.conv_bn_add_act(conv2, ch_out * 4, 1, residual=s, stride=1,
+                                  padding=0, act="relu")
+
+
+def _layer_warp(block_func, input, ch_out, count, stride, fuse_bn="conv"):
+    res = block_func(input, ch_out, stride, fuse_bn=fuse_bn)
+    for _ in range(1, count):
+        res = block_func(res, ch_out, 1, fuse_bn=fuse_bn)
+    return res
+
+
+def resnet_imagenet(img=None, label=None, depth: int = 50,
+                    class_num: int = 1000, img_shape=(3, 224, 224),
+                    fuse_bn=False) -> ModelSpec:
+    """ImageNet-scale ResNet: 7x7/2 stem + max pool + 4 stages + global
+    average pool + FC with softmax; cross-entropy loss, top-1 and top-5
+    accuracy."""
+    _check_fuse_bn(fuse_bn)
+    if img is None:
+        img = layers.data("image", list(img_shape), dtype="float32")
+    if label is None:
+        label = layers.data("label", [1], dtype="int64")
+    cfg = {
+        18: ([2, 2, 2, 2], basicblock),
+        34: ([3, 4, 6, 3], basicblock),
+        50: ([3, 4, 6, 3], bottleneck),
+        101: ([3, 4, 23, 3], bottleneck),
+        152: ([3, 8, 36, 3], bottleneck),
+    }
+    stages, block_func = cfg[depth]
+
+    conv1 = conv_bn_layer(img, ch_out=64, filter_size=7, stride=2, padding=3,
+                          fuse_bn=fuse_bn)
+    pool1 = layers.pool2d(input=conv1, pool_type="max", pool_size=3,
+                          pool_stride=2, pool_padding=1)
+    res1 = _layer_warp(block_func, pool1, 64, stages[0], 1, fuse_bn=fuse_bn)
+    res2 = _layer_warp(block_func, res1, 128, stages[1], 2, fuse_bn=fuse_bn)
+    res3 = _layer_warp(block_func, res2, 256, stages[2], 2, fuse_bn=fuse_bn)
+    res4 = _layer_warp(block_func, res3, 512, stages[3], 2, fuse_bn=fuse_bn)
+    pool2 = layers.pool2d(input=res4, pool_size=7, pool_type="avg",
+                          pool_stride=1, global_pooling=True)
+    out = layers.fc(input=pool2, size=class_num, act="softmax")
+
+    cost = layers.cross_entropy(input=out, label=label)
+    avg_cost = layers.mean(cost)
+    acc = layers.accuracy(input=out, label=label)
+    acc5 = layers.accuracy(input=out, label=label, k=5)
+    return ModelSpec(
+        name=f"resnet{depth}_imagenet", feed_names=[img.name, label.name],
+        loss=avg_cost, metrics={"acc1": acc, "acc5": acc5},
+        synthetic_batch=functools.partial(
+            class_batch, img_shape=tuple(img_shape), num_classes=class_num,
+            img_name=img.name, label_name=label.name),
+        extras={"predict": out})
+
+
+def resnet_cifar10(img=None, label=None, depth: int = 32,
+                   class_num: int = 10, fuse_bn=False) -> ModelSpec:
+    """CIFAR-scale ResNet (6n+2 basicblock layout)."""
+    _check_fuse_bn(fuse_bn)
+    if img is None:
+        img = layers.data("image", [3, 32, 32], dtype="float32")
+    if label is None:
+        label = layers.data("label", [1], dtype="int64")
+    if (depth - 2) % 6:
+        raise ValueError(f"depth must be 6n+2, got {depth}")
+    n = (depth - 2) // 6
+
+    conv1 = conv_bn_layer(img, ch_out=16, filter_size=3, stride=1, padding=1,
+                          fuse_bn=fuse_bn)
+    res1 = _layer_warp(basicblock, conv1, 16, n, 1, fuse_bn=fuse_bn)
+    res2 = _layer_warp(basicblock, res1, 32, n, 2, fuse_bn=fuse_bn)
+    res3 = _layer_warp(basicblock, res2, 64, n, 2, fuse_bn=fuse_bn)
+    pool = layers.pool2d(input=res3, pool_size=8, pool_type="avg",
+                         pool_stride=1, global_pooling=True)
+    out = layers.fc(input=pool, size=class_num, act="softmax")
+
+    cost = layers.cross_entropy(input=out, label=label)
+    avg_cost = layers.mean(cost)
+    acc = layers.accuracy(input=out, label=label)
+    return ModelSpec(
+        name=f"resnet{depth}_cifar10", feed_names=[img.name, label.name],
+        loss=avg_cost, metrics={"acc": acc},
+        synthetic_batch=functools.partial(
+            class_batch, img_shape=(3, 32, 32), num_classes=class_num,
+            img_name=img.name, label_name=label.name),
+        extras={"predict": out})

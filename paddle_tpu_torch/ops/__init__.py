@@ -3,7 +3,7 @@ compile-time ``infer_shape`` plus a torch lowering.  Importing this
 package registers them; ``paddle_tpu_torch/__init__.py`` does so.
 
 The files mirror the JAX package's and hold only the rules the ported
-models need: the Transformer training program uses every rule here.
+models need: the Transformer and ResNet (conv tier) training programs.
 """
 
 from . import (  # noqa: F401
@@ -13,6 +13,7 @@ from . import (  # noqa: F401
     elementwise_ops,
     loss_ops,
     math_ops,
+    metric_ops,
     nn_ops,
     optimizer_ops,
     reduce_ops,

@@ -1,6 +1,6 @@
-"""Loss ops (counterpart of paddle_tpu/ops/loss_ops.py):
-softmax_with_cross_entropy over hard labels, with folded label
-smoothing."""
+"""Loss ops (counterpart of paddle_tpu/ops/loss_ops.py): cross_entropy
+over probabilities, and softmax_with_cross_entropy with folded label
+smoothing — hard labels only."""
 
 from __future__ import annotations
 
@@ -8,6 +8,30 @@ import torch
 
 from ..core.registry import register_op
 from .common import in_desc, set_output
+
+
+def _cross_entropy_infer(op, block):
+    x = in_desc(op, block, "X")
+    if x is None:
+        return
+    set_output(block, op, "Y", list(x.shape[:-1]) + [1], x.dtype)
+
+
+@register_op("cross_entropy", infer_shape=_cross_entropy_infer,
+             diff_inputs=["X"])
+def _cross_entropy(ctx, ins, attrs):
+    """-log(prob[label] + 1e-12) over probabilities; rows labelled
+    ignore_index give 0."""
+    if attrs.get("soft_label", False):
+        raise NotImplementedError("soft labels are not ported")
+    x = ins["X"][0]
+    lab = ins["Label"][0]
+    if lab.dim() == x.dim():
+        lab = lab.squeeze(-1)
+    loss = -torch.log(torch.gather(x, -1, lab.unsqueeze(-1).long()) + 1e-12)
+    ignore = attrs.get("ignore_index", -100)
+    return {"Y": [torch.where((lab != ignore).unsqueeze(-1), loss,
+                              torch.zeros_like(loss))]}
 
 
 def _swce_infer(op, block):

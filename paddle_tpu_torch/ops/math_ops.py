@@ -1,14 +1,40 @@
 """Dense linear algebra + scalar math ops (counterpart of
-paddle_tpu/ops/math_ops.py): matmul, scale, sum, cast.  A plain product
-stays ``torch.matmul``, as the JAX package leaves it to XLA."""
+paddle_tpu/ops/math_ops.py): mul, matmul, scale, sum, mean, cast.  A
+plain product stays ``torch.matmul``, as the JAX package leaves it to
+XLA."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..core.proto import DataType, dtype_to_torch
 from ..core.registry import register_op
 from .common import in_desc, same_shape, set_output
+
+
+def _mul_infer(op, block):
+    x = in_desc(op, block, "X")
+    y = in_desc(op, block, "Y")
+    if x is None or y is None:
+        return
+    xn = op.attr("x_num_col_dims", 1)
+    yn = op.attr("y_num_col_dims", 1)
+    set_output(block, op, "Out", list(x.shape[:xn]) + list(y.shape[yn:]),
+               x.dtype)
+
+
+@register_op("mul", infer_shape=_mul_infer)
+def _mul(ctx, ins, attrs):
+    """out = flatten2(X) @ flatten2(Y): X's dims before x_num_col_dims
+    are rows, Y's before y_num_col_dims the contracted dim."""
+    x, y = ins["X"][0], ins["Y"][0]
+    xn = attrs.get("x_num_col_dims", 1)
+    yn = attrs.get("y_num_col_dims", 1)
+    out = torch.matmul(x.reshape(math.prod(x.shape[:xn]), -1),
+                       y.reshape(math.prod(y.shape[:yn]), -1))
+    return {"Out": [out.reshape(*x.shape[:xn], *y.shape[yn:])]}
 
 
 def _matmul_infer(op, block):
@@ -74,6 +100,17 @@ def _sum(ctx, ins, attrs):
     for v in vals[1:]:
         out = out + v
     return {"Out": [out]}
+
+
+def _mean_infer(op, block):
+    x = in_desc(op, block, "X")
+    if x is not None:
+        set_output(block, op, "Out", [1], x.dtype)
+
+
+@register_op("mean", infer_shape=_mean_infer)
+def _mean(ctx, ins, attrs):
+    return {"Out": [ins["X"][0].mean().reshape(1)]}
 
 
 def _cast_infer(op, block):

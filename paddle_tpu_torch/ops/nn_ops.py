@@ -1,12 +1,15 @@
-"""Normalisation ops (counterpart of paddle_tpu/ops/nn_ops.py):
-layer_norm."""
+"""Neural-network ops (counterpart of paddle_tpu/ops/nn_ops.py):
+layer_norm, pool2d, softmax and conv_bn_add_act (train mode, on the
+conv-epilogue kernels)."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..core.registry import register_op
-from .common import in_desc, set_output
+from ..kernels.conv_epilogue import conv_bn_act_trainable
+from .common import in_desc, same_shape, set_output
 
 
 def _layer_norm_infer(op, block):
@@ -44,3 +47,152 @@ def _layer_norm(ctx, ins, attrs):
         y = y + bias.reshape(tail_shape)
     return {"Y": [y], "Mean": [mean.reshape(-1)],
             "Variance": [var.reshape(-1)]}
+
+
+# -- pooling -----------------------------------------------------------------
+def _pool_out_dim(size, k, pad, stride, ceil_mode):
+    if size < 0:
+        return -1
+    num = size + 2 * pad - k
+    if ceil_mode:
+        return -(-num // stride) + 1
+    return num // stride + 1
+
+
+def _pool2d_infer(op, block):
+    x = in_desc(op, block, "X")
+    if x is None:
+        return
+    n, c, h, w = x.shape
+    if op.attr("global_pooling", False):
+        set_output(block, op, "Out", [n, c, 1, 1], x.dtype)
+        return
+    k = op.attr("ksize", [1, 1])
+    s = op.attr("strides", [1, 1])
+    p = op.attr("paddings", [0, 0])
+    cm = op.attr("ceil_mode", False)
+    set_output(block, op, "Out",
+               [n, c, _pool_out_dim(h, k[0], p[0], s[0], cm),
+                _pool_out_dim(w, k[1], p[1], s[1], cm)], x.dtype)
+
+
+@register_op("pool2d", infer_shape=_pool2d_infer)
+def _pool2d(ctx, ins, attrs):
+    """NCHW max / avg pooling.  As the JAX rule's reduce_window: a max
+    window pads with -inf, ceil_mode adds stride-1 more padding on the
+    high side, and an exclusive avg divides by the window's in-image
+    count.  torch's pooling keeps a channels-last input channels-last, so
+    the conv ops around it stay copy-free."""
+    if attrs.get("adaptive", False):
+        raise NotImplementedError("adaptive pool2d is not ported")
+    x = ins["X"][0]
+    ptype = attrs.get("pooling_type", "max")
+    if ptype not in ("max", "avg"):
+        raise ValueError(f"pool2d: unsupported pooling_type {ptype!r}")
+    if attrs.get("global_pooling", False):
+        if ptype == "max":
+            return {"Out": [x.amax(dim=(2, 3), keepdim=True)]}
+        return {"Out": [x.mean(dim=(2, 3), keepdim=True)]}
+    k = list(attrs.get("ksize", [1, 1]))
+    s = list(attrs.get("strides", [1, 1]))
+    p = list(attrs.get("paddings", [0, 0]))
+    exclusive = attrs.get("exclusive", True)
+    if attrs.get("ceil_mode", False) or any(2 * pp > kk
+                                            for pp, kk in zip(p, k)):
+        # explicit (low, high) padding, then an unpadded window
+        pad = (p[1], p[1] + (s[1] - 1 if attrs.get("ceil_mode") else 0),
+               p[0], p[0] + (s[0] - 1 if attrs.get("ceil_mode") else 0))
+        if ptype == "max":
+            return {"Out": [F.max_pool2d(F.pad(x, pad, value=float("-inf")),
+                                         k, s)]}
+        summed = F.avg_pool2d(F.pad(x, pad), k, s, divisor_override=1)
+        if not exclusive:
+            return {"Out": [summed / (k[0] * k[1])]}
+        ones = F.pad(torch.ones_like(x[:1, :1]), pad)
+        return {"Out": [summed / F.avg_pool2d(ones, k, s,
+                                              divisor_override=1)
+                        .clamp(min=1.0)]}
+    if ptype == "max":
+        return {"Out": [F.max_pool2d(x, k, s, p)]}
+    return {"Out": [F.avg_pool2d(x, k, s, p,
+                                 count_include_pad=not exclusive)]}
+
+
+# -- softmax -----------------------------------------------------------------
+@register_op("softmax", infer_shape=same_shape())
+def _softmax(ctx, ins, attrs):
+    return {"Out": [torch.softmax(ins["X"][0], dim=attrs.get("axis", -1))]}
+
+
+# -- conv + batch_norm + residual + activation -------------------------------
+def _conv_out_dim(size, k, pad, stride):
+    if size < 0:
+        return -1
+    return (size + 2 * pad - k) // stride + 1
+
+
+def _conv_bn_add_act_infer(op, block):
+    x = in_desc(op, block, "X")
+    f = in_desc(op, block, "Filter")
+    if x is None or f is None:
+        return
+    strides = op.attr("strides", [1, 1])
+    paddings = op.attr("paddings", [0, 0])
+    n, _, h, w = x.shape
+    oc = f.shape[0]
+    ho = _conv_out_dim(h, f.shape[2], paddings[0], strides[0])
+    wo = _conv_out_dim(w, f.shape[3], paddings[1], strides[1])
+    z = in_desc(op, block, "Z")
+    if z is not None and list(z.shape) != [n, oc, ho, wo]:
+        raise ValueError(
+            f"conv_bn_add_act: residual Z shape {list(z.shape)} must equal "
+            f"the conv output shape {[n, oc, ho, wo]}")
+    set_output(block, op, "Y", [n, oc, ho, wo], x.dtype)
+    for slot in ("MeanOut", "VarianceOut", "SavedMean", "SavedVariance"):
+        set_output(block, op, slot, [oc], x.dtype)
+
+
+@register_op("conv_bn_add_act", infer_shape=_conv_bn_add_act_infer,
+             diff_inputs=["X", "Filter", "Scale", "Bias", "Z"])
+def _conv_bn_add_act(ctx, ins, attrs):
+    """conv2d + batch_norm (batch statistics) + residual + activation as
+    one op, train mode: the conv_stats and bn_epilogue kernels forward
+    (their plain versions on the CPU), the analytic backward.
+
+    NCHW program contract, NHWC kernels, and no copies between them: the
+    rule permutes X and Z to NHWC views, the kernel writes Y NHWC, and the
+    rule returns Y permuted back — an NCHW-shaped tensor in channels-last
+    memory, so the next op's permute is contiguous again.  Only an input
+    in NCHW memory (the fed image) is copied, once, by the wrapper.  The
+    moving statistics update in torch: momentum * old + (1 - momentum) *
+    batch; SavedMean is the batch mean, SavedVariance rsqrt(var + eps)."""
+    if attrs.get("is_test", False) or attrs.get("use_global_stats", False):
+        raise NotImplementedError(
+            "conv_bn_add_act in test mode (moving statistics) is not ported")
+    groups = int(attrs.get("groups", 1) or 1)
+    if groups != 1:
+        raise NotImplementedError(
+            f"conv_bn_add_act with groups={groups} is not ported")
+    strides = attrs.get("strides", [1, 1])
+    paddings = attrs.get("paddings", [0, 0])
+    if strides[0] != strides[1] or paddings[0] != paddings[1]:
+        raise NotImplementedError(
+            "conv_bn_add_act needs square stride/padding "
+            f"(got strides={strides}, paddings={paddings})")
+    act = attrs.get("act") or ""
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    z = ins.get("Z", [None])[0]
+    y, bmean, bvar = conv_bn_act_trainable(
+        ins["X"][0].permute(0, 2, 3, 1), ins["Filter"][0].permute(2, 3, 1, 0),
+        ins["Scale"][0], ins["Bias"][0],
+        None if z is None else z.permute(0, 2, 3, 1),
+        stride=int(strides[0]), padding=int(paddings[0]), eps=eps, act=act)
+    return {
+        "Y": [y.permute(0, 3, 1, 2)],
+        "MeanOut": [momentum * ins["Mean"][0] + (1.0 - momentum) * bmean],
+        "VarianceOut": [momentum * ins["Variance"][0]
+                        + (1.0 - momentum) * bvar],
+        "SavedMean": [bmean],
+        "SavedVariance": [torch.rsqrt(bvar + eps)],
+    }

@@ -1,7 +1,11 @@
-"""Reductions (counterpart of paddle_tpu/ops/reduce_ops.py): reduce_sum."""
+"""Reductions (counterpart of paddle_tpu/ops/reduce_ops.py): reduce_sum
+and top_k."""
 
 from __future__ import annotations
 
+import torch
+
+from ..core.proto import DataType
 from ..core.registry import register_op
 from .common import in_desc, set_output
 
@@ -43,3 +47,19 @@ def _reduce_sum(ctx, ins, attrs):
     # torch widens integer sums to int64; the desc keeps the input's dtype
     out = out.to(x.dtype)
     return {"Out": [out.reshape(1) if out.dim() == 0 else out]}
+
+
+def _topk_infer(op, block):
+    x = in_desc(op, block, "X")
+    if x is None:
+        return
+    shape = list(x.shape[:-1]) + [op.attr("k", 1)]
+    set_output(block, op, "Out", shape, x.dtype)
+    set_output(block, op, "Indices", shape, DataType.INT64)
+
+
+@register_op("top_k", infer_shape=_topk_infer, diff_inputs=[])
+def _top_k(ctx, ins, attrs):
+    """Values and int64 indices of the k largest along the last dim."""
+    vals, idx = torch.topk(ins["X"][0], attrs.get("k", 1), dim=-1)
+    return {"Out": [vals], "Indices": [idx]}

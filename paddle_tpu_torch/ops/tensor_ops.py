@@ -1,6 +1,6 @@
 """Tensor creation / manipulation ops (counterpart of
-paddle_tpu/ops/tensor_ops.py): fills, assign, the uniform initializer,
-reshape2 / squeeze2 / transpose2 and lookup_table."""
+paddle_tpu/ops/tensor_ops.py): fills, assign, the uniform and gaussian
+initializers, reshape2 / squeeze2 / transpose2 and lookup_table."""
 
 from __future__ import annotations
 
@@ -83,6 +83,17 @@ def _uniform_random(ctx, ins, attrs):
     out = torch.empty(shape, dtype=_dtype(attrs), device=ctx.device)
     out.uniform_(attrs.get("min", -1.0), attrs.get("max", 1.0),
                  generator=ctx.generator)
+    return {"Out": [out]}
+
+
+@register_op("gaussian_random", infer_shape=_fill_constant_infer,
+             no_grad=True)
+def _gaussian_random(ctx, ins, attrs):
+    """N(mean, std^2) from the program's torch.Generator."""
+    shape = [int(d) for d in attrs["shape"]]
+    out = torch.empty(shape, dtype=_dtype(attrs), device=ctx.device)
+    out.normal_(attrs.get("mean", 0.0), attrs.get("std", 1.0),
+                generator=ctx.generator)
     return {"Out": [out]}
 
 

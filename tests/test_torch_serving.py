@@ -317,7 +317,10 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.kernels.flash_attention, "
             "paddle_tpu_torch.kernels.paged_attention, "
+            "paddle_tpu_torch.kernels.conv_epilogue, "
             "paddle_tpu_torch.models.transformer, "
+            "paddle_tpu_torch.models.resnet, "
+            "paddle_tpu_torch.ops.metric_ops, "
             "paddle_tpu_torch.core.executor, paddle_tpu_torch.unique_name; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
