@@ -19,6 +19,14 @@ prints no final result line):
    ``flash_attention_bwd_reference`` at the training shape and the edges
    (head_dim 64 and 128, causal and not, ragged lengths with a 0 row, S
    off the tile, Sk > Sq), max abs error <= 1e-4 * max(1, max |plain|).
+   The paged kernel's verify and int8 variants against
+   ``paged_verify_reference`` / ``paged_decode_reference`` on pages and
+   scales the pool's own ``write_kv`` produced: verify at the serving
+   shape (B 8, H 8, D 64, page 16, Sq 5, ragged q_lengths 1-5, a length
+   equal to its q_length, blocks across a 64-slot chunk and a page),
+   at G x Sq x D = 1280 and 5120 (row tiles), decode and verify over int8
+   pages; and a verify block against single-token decode launches cut at
+   each row, all within 1e-4 * max(1, max |plain|) on the valid rows.
 3. Serving at the Transformer-base width (vocab 10000, d_model 512,
    8 heads, 6 layers, d_inner 2048, max_length 256; random weights from a
    seed): ``ContinuousBatchingLoop.run`` on 16 requests (prompts of 16-128
@@ -31,6 +39,18 @@ prints no final result line):
    top-2 logit margin is under the tolerance (reported).  One more run
    under ``torch.profiler`` gives the device busy time by kernel and the
    busy share of the counted run's wall time.
+   Then speculative serving at the same width, on motif-tiled prompts
+   (``tools/serve_bench.py --speculate``'s traffic): a d = 0 run, the
+   counted ``speculate=4`` run (verify_f32 launches = spec_steps x
+   n_layer, decode_f32 = (decode_steps - spec_steps) x n_layer, both
+   > 0, drafts > 0, the pool clean), whose tokens must match the plain
+   versions' run, the d = 0 run and (two requests) full_decode by the
+   near-tie rule; a run whose drafter proposes the d = 0 run's tokens
+   with every third proposal spoiled (accepted and rolled-back tokens
+   both > 0, tokens as d = 0); and the int8 pool with ``speculate=4``
+   (decode_i8 and verify_i8 launches = steps x n_layer, both > 0, tokens
+   as its plain run; the logit distance to the fp32 run reported).  One
+   more speculative run under ``torch.profiler``.
 4. Training through the fluid entry points: ``TransformerConfig()`` with
    flash attention on and dropout off, ``MomentumOptimizer(1e-4,
    0.9).minimize``, ``Executor().run(startup)``, then ten
@@ -79,9 +99,11 @@ prints no final result line):
    plain version, its bound (bytes over 3.35 TB/s or fp32 flops over
    67 TFLOP/s, the larger) and one PyTorch library call for the same
    function (SDPA, forward or backward; cuDNN's conv2d plus var_mean; the
-   batch_norm + add + relu chain); the backward kernels and flash_fwd
-   with lse at the training shape; conv_stats at the shapes of kernel
-   rows 5 and 6, bn_epilogue at row 7's.
+   batch_norm + add + relu chain); the verify and int8 variants of the
+   paged kernel at the speculative serving shape (SDPA over the gathered,
+   dequantized K/V); the backward kernels and flash_fwd with lse at the
+   training shape; conv_stats at the shapes of kernel rows 5 and 6,
+   bn_epilogue at row 7's.
 
 Each phase prints one JSON line; the line before the last is the
 ``kernels`` summary and the last line is exactly
@@ -291,6 +313,7 @@ def _plain_decoder_cls(serving):
     from paddle_tpu_torch.kernels.flash_attention import reference_attention
     from paddle_tpu_torch.kernels.paged_attention import (
         paged_decode_reference,
+        paged_verify_reference,
     )
 
     class PlainDecoder(serving.TransformerDecoder):
@@ -300,19 +323,28 @@ def _plain_decoder_cls(serving):
             return reference_attention(q, k, v, True, self.cfg.head_dim ** -0.5,
                                        k_lengths=lens)
 
-        def attend_decode(self, q, k_pages, v_pages, tables, lengths):
+        def attend_decode(self, q, k_pages, v_pages, tables, lengths,
+                          k_scales=None, v_scales=None):
             return paged_decode_reference(q, k_pages, v_pages, tables,
-                                          lengths, self.cfg.head_dim ** -0.5)
+                                          lengths, self.cfg.head_dim ** -0.5,
+                                          k_scales, v_scales)
+
+        def attend_verify(self, q, k_pages, v_pages, tables, lengths,
+                          q_lengths, k_scales=None, v_scales=None):
+            return paged_verify_reference(q, k_pages, v_pages, tables,
+                                          lengths, q_lengths,
+                                          self.cfg.head_dim ** -0.5,
+                                          k_scales, v_scales)
 
     return PlainDecoder
 
 
-def _new_pool(serving, cfg, device=None):
+def _new_pool(serving, cfg, device=None, dtype="float32"):
     per_seq = -(-(PROMPT_RANGE[1] + MAX_NEW) // PAGE_SIZE)
     return serving.KVCachePool(
         num_pages=MAX_BATCH * per_seq + 4, page_size=PAGE_SIZE,
         num_layers=cfg.n_layer, num_heads=cfg.n_head, head_dim=cfg.head_dim,
-        num_kv_heads=cfg.num_kv_heads, device=device)
+        num_kv_heads=cfg.num_kv_heads, device=device, dtype=dtype)
 
 
 def _compare_tokens(got, want):
@@ -360,7 +392,7 @@ def phase_main_path(torch, np):
                                           max_batch=MAX_BATCH)
     torch.cuda.synchronize()
     fa.flash_attention.launches = 0
-    pa.paged_decode_attention.launches = 0
+    pa.reset_launches()
     t0 = time.perf_counter()
     results = loop.run(reqs)
     torch.cuda.synchronize()
@@ -419,7 +451,7 @@ def phase_main_path(torch, np):
     return launches, reqs
 
 
-def _trace(torch, serving, model, cfg, reqs, unprofiled_wall):
+def _trace(torch, serving, model, cfg, reqs, unprofiled_wall, **loop_kw):
     """One more run of the same requests under torch.profiler.  Device
     busy time is the summed time of the device's own events (kernels,
     copies, fills; one stream, so they never overlap) — the host-side
@@ -432,7 +464,7 @@ def _trace(torch, serving, model, cfg, reqs, unprofiled_wall):
     from torch.profiler import ProfilerActivity, profile
 
     loop = serving.ContinuousBatchingLoop(model, cfg, _new_pool(serving, cfg),
-                                          max_batch=MAX_BATCH)
+                                          max_batch=MAX_BATCH, **loop_kw)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -445,12 +477,333 @@ def _trace(torch, serving, model, cfg, reqs, unprofiled_wall):
     if not busy_s:
         raise AssertionError("the profiler saw no device time")
     attention_us = sum(us for k, us in by_name.items()
-                       if "flash_fwd" in k or "paged_decode" in k)
+                       if "flash_fwd" in k or "paged_attn" in k)
     return {"traced_wall_s": wall, "device_busy_s": busy_s,
             "busy_share": busy_s / unprofiled_wall,
             "attention_share_of_busy": attention_us / 1e6 / busy_s,
             "device_ms_by_kernel": _top_kernels(by_name, 8),
             "attention_ms": attention_us / 1e3}
+
+
+# -- phase 3b: speculative serving -----------------------------------------
+
+SPEC_D = 4             # drafted tokens per round (verify rows Sq = 5)
+ORACLE_EVERY = 3       # the oracle drafter spoils every third proposal
+# (name, H_q, H_kv, D, dtype): verify and int8 parity cases; B = 8, page 16,
+# Sq = 5.  (length, q_length) pairs: one length equal to its q_length, one
+# block crossing the 64-slot chunk (61..65), one crossing a page (14..17);
+# the q_lengths cover 1..5
+SPEC_LENS = [(144, 5), (3, 3), (66, 5), (18, 4), (150, 1), (99, 2),
+             (40, 5), (17, 4)]
+SPEC_CASES = [
+    ("verify_f32_serving", 8, 8, 64, "float32"),
+    ("verify_f32_gqa_GSqD_1280", 8, 2, 64, "float32"),
+    ("verify_f32_gqa_GSqD_5120", 16, 2, 128, "float32"),
+    ("verify_i8_serving", 8, 8, 64, "int8"),
+    ("verify_i8_gqa_GSqD_5120", 16, 2, 128, "int8"),
+]
+
+
+def _pool_layer(torch, serving, rng, Hq, Hkv, D, lengths, dtype, dev):
+    """One layer of a pool filled through the pool's own write_kv: every
+    sequence's tokens in two rounds, the second at twice the magnitude
+    (an int8 page's amax grows and its content re-quantizes).  Returns
+    (pool, tables, lengths) on the card."""
+    pages = sum(-(-n // PAGE_SIZE) for n in lengths) + 4
+    pool = serving.KVCachePool(pages, PAGE_SIZE, 1, Hq, D, num_kv_heads=Hkv,
+                               dtype=dtype)
+    ids = list(range(len(lengths)))
+    for s in ids:
+        pool.allocate(s)
+    first = [n // 2 for n in lengths]
+    for counts, gain in ((first, 1.0),
+                         ([n - f for n, f in zip(lengths, first)], 2.0)):
+        pg, sl = pool.append_tokens(ids, counts)
+        k = gain * torch.randn(len(pg), Hkv, D, generator=rng, device=dev)
+        v = gain * torch.randn(len(pg), Hkv, D, generator=rng, device=dev)
+        pool.write_kv(0, pg, sl, k, v)
+    tables, lens = pool.page_table_batch(ids)
+    return (pool, torch.as_tensor(tables, device=dev),
+            torch.as_tensor(lens, device=dev))
+
+
+def phase_spec_parity(torch):
+    """The verify and int8 variants against their plain versions, on pages
+    (and scales) the pool's own write_kv produced: verify at the serving
+    shape and at G * Sq * D = 1280 and 5120 (row tiles), decode int8,
+    verify int8; then a verify block against stacked single-token decode
+    launches, row by row.  Bound: max abs error <= PARITY_TOL * max(1,
+    max |plain|)."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    dev = torch.device("cuda")
+    rng = torch.Generator(device=dev).manual_seed(SEED + 5)
+    lengths = [n for n, _ in SPEC_LENS]
+    qlens = torch.tensor([q for _, q in SPEC_LENS], dtype=torch.int32,
+                         device=dev)
+    cases = []
+    errs = {v: [] for v in pa.VARIANTS if v != "decode_f32"}
+
+    def record(variant, name, got, want):
+        err = float((got - want).abs().max())
+        bound = PARITY_TOL * max(1.0, float(want.abs().max()))
+        cases.append({"kernel": "paged_" + variant, "case": name,
+                      "max_abs_err": err, "bound": bound})
+        if variant in errs:
+            errs[variant].append(err)
+
+    for name, Hq, Hkv, D, dtype in SPEC_CASES:
+        pool, tables, ln = _pool_layer(torch, serving, rng, Hq, Hkv, D,
+                                       lengths, dtype, dev)
+        kp, vp = pool.k_pages[0], pool.v_pages[0]
+        ks, vs = pool.layer_scales(0)
+        q = torch.randn(len(lengths), Hq, SPEC_D + 1, D, generator=rng,
+                        device=dev)
+        got = pa.paged_decode_attention(q, kp, vp, tables, ln,
+                                        q_lengths=qlens, k_scales=ks,
+                                        v_scales=vs)
+        want = pa.paged_verify_reference(q, kp, vp, tables, ln, qlens,
+                                         D ** -0.5, ks, vs)
+        torch.cuda.synchronize()
+        rows = (torch.arange(SPEC_D + 1, device=dev)[None, :]
+                < qlens[:, None])[:, None, :, None]  # valid rows only
+        variant = "verify_i8" if dtype == "int8" else "verify_f32"
+        record(variant, name, got * rows, want * rows)
+        if dtype == "int8":
+            q1 = q[:, :, :1].contiguous()
+            record("decode_i8", name.replace("verify", "decode"),
+                   pa.paged_decode_attention(q1, kp, vp, tables, ln,
+                                             k_scales=ks, v_scales=vs),
+                   pa.paged_decode_reference(q1, kp, vp, tables, ln,
+                                             D ** -0.5, ks, vs))
+        if name == "verify_f32_serving":
+            # row t of each block against a decode launch whose lengths
+            # end at that row's position
+            stacked = torch.zeros_like(got)
+            for t in range(SPEC_D + 1):
+                ln_t = torch.where(t < qlens, ln - qlens + t + 1, ln)
+                stacked[:, :, t:t + 1] = pa.paged_decode_attention(
+                    q[:, :, t:t + 1].contiguous(), kp, vp, tables, ln_t)
+            torch.cuda.synchronize()
+            record("verify_f32", "verify_vs_stacked_decode",
+                   got * rows, stacked * rows)
+    emit({"phase": "spec_parity", "tolerance": "max abs err <= "
+          f"{PARITY_TOL} * max(1, max |plain|), valid rows",
+          "lengths_and_q_lengths": SPEC_LENS, "cases": cases})
+    bad = [c for c in cases if not c["max_abs_err"] <= c["bound"]]
+    if bad:
+        raise AssertionError(f"verify / int8 parity beyond its bound: {bad}")
+    return {k: max(v) for k, v in errs.items()}
+
+
+def make_spec_requests(serving, np):
+    """The speculative traffic as tools/serve_bench.py builds it under
+    --speculate: one random motif of min(6, the shortest prompt) tokens,
+    tiled to each prompt's length (drawn from PROMPT_RANGE)."""
+    rng = np.random.RandomState(SEED)
+    motif = rng.randint(1, CFG["vocab_size"],
+                        size=max(2, min(6, PROMPT_RANGE[0]))).tolist()
+    reqs = []
+    for _ in range(N_REQUESTS):
+        plen = int(rng.randint(PROMPT_RANGE[0], PROMPT_RANGE[1] + 1))
+        reps = -(-plen // len(motif))
+        reqs.append(serving.DecodeRequest(prompt=(motif * reps)[:plen],
+                                          max_new_tokens=MAX_NEW))
+    return reqs
+
+
+class OracleDrafter:
+    """Proposes a reference run's own continuation of each request (seq
+    id i is request i: the loop numbers sequences in admission order, and
+    admission is FIFO), with the last token of every ORACLE_EVERY-th
+    proposal replaced, so that blocks are both accepted and rolled back."""
+
+    stateful = True
+
+    def __init__(self, reqs, results, vocab):
+        self.full = [list(r.prompt) + list(res.tokens)
+                     for r, res in zip(reqs, results)]
+        self.vocab, self.calls = vocab, 0
+
+    def draft(self, context, max_draft, seq_id):
+        n = len(context)
+        out = self.full[seq_id][n:n + max_draft]
+        self.calls += 1
+        if out and self.calls % ORACLE_EVERY == 0:
+            out[-1] = (out[-1] + 1) % self.vocab
+        return out
+
+    def release(self, seq_id):
+        pass
+
+
+def _logit_distance(np, got, want):
+    """max |logit difference| over the steps both runs reached with the
+    same tokens."""
+    dist = 0.0
+    for g, w in zip(got, want):
+        for t, (gt, wt) in enumerate(zip(g.tokens, w.tokens)):
+            dist = max(dist, float(np.abs(g.logits[t] - w.logits[t]).max()))
+            if gt != wt:
+                break
+    return dist
+
+
+def _check_run(np, cfg, loop, pool, results, name):
+    report = pool.check_invariants()
+    if not report["ok"] or pool.used_pages:
+        raise AssertionError(f"{name}: pool not clean after the run: "
+                             f"{report}")
+    for r in results:
+        if r.error is not None:
+            raise AssertionError(f"{name}: sequence {r.seq_id} failed: "
+                                 f"{r.error}")
+        if len(r.tokens) != MAX_NEW or not all(
+                np.isfinite(row).all() and row.shape == (cfg.vocab_size,)
+                for row in r.logits):
+            raise AssertionError(f"{name}: sequence {r.seq_id}: "
+                                 f"{len(r.tokens)} tokens or bad logits")
+
+
+def _counted_run(torch, serving, model, cfg, reqs, dtype="float32", **kw):
+    """One loop run with every launch counter zeroed just before it and
+    read just after.  Returns (loop, pool, results, wall_s, launches)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    pool = _new_pool(serving, cfg, dtype=dtype)
+    loop = serving.ContinuousBatchingLoop(model, cfg, pool,
+                                          max_batch=MAX_BATCH, **kw)
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    pa.reset_launches()
+    t0 = time.perf_counter()
+    results = loop.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(pa.paged_decode_attention.launches_by_variant,
+                    flash_fwd=fa.flash_attention.launches)
+    return loop, pool, results, wall, launches
+
+
+def _gate_launches(cfg, loop, launches, decode, verify, name):
+    want = {"flash_fwd": loop.prefill_steps * cfg.n_layer,
+            verify: loop.spec_steps * cfg.n_layer,
+            decode: (loop.decode_steps - loop.spec_steps) * cfg.n_layer}
+    got = {k: launches[k] for k in want}
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    if got != want or not all(got.values()) or others:
+        raise AssertionError(f"{name}: launches {launches}, want {want} "
+                             "(each > 0, no other variant)")
+
+
+def _spec_summary(loop, wall, n_tokens):
+    return {"steps": loop.steps, "prefill_steps": loop.prefill_steps,
+            "decode_steps": loop.decode_steps, "spec_steps": loop.spec_steps,
+            "drafted_tokens": loop.drafted_tokens,
+            "accepted_tokens": loop.accepted_tokens,
+            "rolled_back_tokens": loop.rolled_back_tokens,
+            "acceptance_rate": loop.acceptance_rate(),
+            "wall_s": wall, "tokens_per_s": n_tokens / wall,
+            "verify_step_ms_median": (1e3 * statistics.median(
+                loop.verify_step_s) if loop.verify_step_s else None),
+            "decode_step_ms_median": (1e3 * statistics.median(
+                loop.decode_step_s) if loop.decode_step_s else None)}
+
+
+def phase_spec_main_path(torch, np):
+    """Speculative serving at the Transformer-base width on the motif
+    traffic: the d = 0 kernel run, the counted speculate=4 run (fp32
+    pool), the same loop through the plain versions on the card, two
+    requests through full_decode, an oracle-drafter run, and the int8
+    pool run with its plain twin."""
+    from paddle_tpu_torch import serving
+
+    cfg = serving.DecodeConfig(**CFG)
+    params = serving.init_decode_params(cfg, seed=SEED)
+    reqs = make_spec_requests(serving, np)
+    n_tokens = N_REQUESTS * MAX_NEW
+    model = serving.TransformerDecoder(cfg).load_jax_params(params)
+    plain = _plain_decoder_cls(serving)(cfg).load_jax_params(params)
+    # warm-up (the verify shapes' first launches), then the counted runs
+    serving.ContinuousBatchingLoop(model, cfg, _new_pool(serving, cfg),
+                                   max_batch=MAX_BATCH,
+                                   speculate=SPEC_D).run(reqs)
+    loop0, pool0, res0, wall0, _ = _counted_run(torch, serving, model, cfg,
+                                                reqs)
+    _check_run(np, cfg, loop0, pool0, res0, "d=0")
+    loop, pool, res, wall, launches = _counted_run(
+        torch, serving, model, cfg, reqs, speculate=SPEC_D)
+    _gate_launches(cfg, loop, launches, "decode_f32", "verify_f32",
+                   "spec_main_path")
+    _check_run(np, cfg, loop, pool, res, "spec_main_path")
+    if not loop.drafted_tokens:
+        raise AssertionError("spec_main_path: nothing was drafted")
+    plain_res = serving.ContinuousBatchingLoop(
+        plain, cfg, _new_pool(serving, cfg), max_batch=MAX_BATCH,
+        speculate=SPEC_D).run(reqs)
+    plain_diff, plain_ties = _compare_tokens(res, plain_res)
+    d0_diff, d0_ties = _compare_tokens(res, res0)
+    oracle = []
+    for r in reqs[:2]:
+        toks, rows = serving.full_decode(params, cfg, r.prompt,
+                                         r.max_new_tokens)
+        oracle.append(serving.GeneratedSequence(seq_id=-1, prompt=r.prompt,
+                                                tokens=toks, logits=rows))
+    oracle_diff, oracle_ties = _compare_tokens(res[:2], oracle)
+
+    # the oracle drafter: proposals from the d = 0 run, every third spoiled
+    loop_o, pool_o, res_o, wall_o, launches_o = _counted_run(
+        torch, serving, model, cfg, reqs, speculate=SPEC_D,
+        drafter=OracleDrafter(reqs, res0, cfg.vocab_size))
+    _check_run(np, cfg, loop_o, pool_o, res_o, "oracle_drafter")
+    if not (loop_o.accepted_tokens and loop_o.rolled_back_tokens):
+        raise AssertionError(
+            f"oracle drafter: accepted {loop_o.accepted_tokens}, rolled "
+            f"back {loop_o.rolled_back_tokens}: both must be > 0")
+    oracle_d0_diff, oracle_d0_ties = _compare_tokens(res_o, res0)
+
+    # the int8 pool, kernels and plain versions
+    loop8, pool8, res8, wall8, launches8 = _counted_run(
+        torch, serving, model, cfg, reqs, dtype="int8", speculate=SPEC_D)
+    _gate_launches(cfg, loop8, launches8, "decode_i8", "verify_i8", "int8")
+    _check_run(np, cfg, loop8, pool8, res8, "int8")
+    plain8 = serving.ContinuousBatchingLoop(
+        plain, cfg, _new_pool(serving, cfg, dtype="int8"),
+        max_batch=MAX_BATCH, speculate=SPEC_D).run(reqs)
+    plain8_diff, plain8_ties = _compare_tokens(res8, plain8)
+    trace = _trace(torch, serving, model, cfg, reqs, wall, speculate=SPEC_D)
+    emit({"phase": "spec_main_path", "config": CFG, "speculate": SPEC_D,
+          "max_batch": MAX_BATCH, "page_size": PAGE_SIZE,
+          "requests": N_REQUESTS, "max_new_tokens": MAX_NEW,
+          "traffic": "motif-tiled (tools/serve_bench.py --speculate)",
+          "prompt_lens": [len(r.prompt) for r in reqs],
+          "launches": launches, "d0": _spec_summary(loop0, wall0, n_tokens),
+          "spec": _spec_summary(loop, wall, n_tokens),
+          "steps_vs_d0": [loop.steps, loop0.steps],
+          "pool": pool.stats(),
+          "vs_plain": {"max_abs_logit_diff": plain_diff,
+                       "near_ties": plain_ties},
+          "vs_d0": {"max_abs_logit_diff": d0_diff, "near_ties": d0_ties},
+          "vs_full_decode": {"requests": 2, "max_abs_logit_diff": oracle_diff,
+                             "near_ties": oracle_ties},
+          "trace": trace})
+    emit({"phase": "spec_oracle_drafter", "spoiled": f"every "
+          f"{ORACLE_EVERY}rd proposal's last token",
+          "launches": launches_o,
+          "run": _spec_summary(loop_o, wall_o, n_tokens),
+          "vs_d0": {"max_abs_logit_diff": oracle_d0_diff,
+                    "near_ties": oracle_d0_ties}})
+    emit({"phase": "spec_int8", "launches": launches8,
+          "run": _spec_summary(loop8, wall8, n_tokens),
+          "pool": pool8.stats(), "bytes_per_page": pool8.bytes_per_page(),
+          "fp32_bytes_per_page": pool.bytes_per_page(),
+          "vs_plain": {"max_abs_logit_diff": plain8_diff,
+                       "near_ties": plain8_ties},
+          "max_abs_logit_distance_to_fp32_run": _logit_distance(np, res8,
+                                                                res)})
+    return {"spec": launches, "int8": launches8}, reqs
 
 
 # -- phase 4: training -----------------------------------------------------
@@ -1138,6 +1491,108 @@ def phase_timing(torch, np, reqs, parity_err, launches):
     return kernels
 
 
+def phase_spec_timing(torch, np, reqs, errs, launches):
+    """verify_f32, decode_i8 and verify_i8 at the speculative serving shape
+    (B = 8, H = H_kv = 8, D = 64, page 16, Sq = 5 with every block full),
+    a mid-generation step of the first admitted group of the motif
+    requests, on pages the pool's own write_kv filled.  Bound: live K/V
+    read once at the pool's itemsize, plus the int8 scales of the live
+    pages, q, o, tables and lengths, over 3.35 TB/s; against 4 * D fp32
+    flops per visible (row, key) pair (plus one per dequantized element)
+    over 67 TFLOP/s.  Library: SDPA over the gathered (dequantized) K/V
+    with a boolean mask (gather not timed)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    dev = torch.device("cuda")
+    rng = torch.Generator(device=dev).manual_seed(SEED + 6)
+    H, D = CFG["n_head"], CFG["d_model"] // CFG["n_head"]
+    scale = D ** -0.5
+    lens = [len(r.prompt) + MAX_NEW // 2 for r in reqs[:MAX_BATCH]]
+    B = len(lens)
+    n_pages = sum(-(-n // PAGE_SIZE) for n in lens)
+    rows = []
+    for variant, dtype, sq in (("verify_f32", "float32", SPEC_D + 1),
+                               ("decode_i8", "int8", 1),
+                               ("verify_i8", "int8", SPEC_D + 1)):
+        pool, tables, ln = _pool_layer(torch, serving, rng, H, H, D, lens,
+                                       dtype, dev)
+        kp, vp = pool.k_pages[0], pool.v_pages[0]
+        ks, vs = pool.layer_scales(0)
+        q = torch.randn(B, H, sq, D, generator=rng, device=dev)
+        ql = (torch.full((B,), sq, dtype=torch.int32, device=dev)
+              if sq > 1 else None)
+        kg = pa.gather_kv_pages(kp, tables, ks)
+        vg = pa.gather_kv_pages(vp, tables, vs)
+        j = torch.arange(kg.shape[2], device=dev)
+        pos_q = (ln.long() - sq)[:, None] + torch.arange(sq, device=dev)
+        vis = ((j[None, None, :] <= pos_q[:, :, None])
+               & (j[None, None, :] < ln.long()[:, None, None]))[:, None]
+        if sq > 1:
+            plain = lambda: pa.paged_verify_reference(  # noqa: E731
+                q, kp, vp, tables, ln, ql, scale, ks, vs)
+        else:
+            plain = lambda: pa.paged_decode_reference(  # noqa: E731
+                q, kp, vp, tables, ln, scale, ks, vs)
+        itemsize = kp.element_size()
+        nbytes = (itemsize * 2 * H * D * sum(lens) + 4 * 2 * B * H * sq * D
+                  + 4 * (tables.numel() + 2 * B)
+                  + (2 * 4 * n_pages if dtype == "int8" else 0))
+        pairs = sum(n - sq + t + 1 for n in lens for t in range(sq))
+        flops = 4 * D * H * pairs \
+            + (2 * H * D * sum(lens) if dtype == "int8" else 0)
+        path = "int8" if dtype == "int8" else "spec"
+        rows.append(_row(
+            "paged_" + variant,
+            "paddle_tpu_torch/kernels/csrc/paged_decode.cu",
+            "paddle_tpu/kernels/paged_attention.py:645",
+            launches[path][variant], errs[variant],
+            device_ms(torch, lambda: pa.paged_decode_attention(
+                q, kp, vp, tables, ln, q_lengths=ql, k_scales=ks,
+                v_scales=vs)),
+            device_ms(torch, plain), nbytes, flops,
+            device_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, kg, vg, attn_mask=vis, scale=scale)),
+            {"B": B, "H_q": H, "H_kv": H, "D": D, "Sq": sq,
+             "page_size": PAGE_SIZE, "pool": dtype, "lengths": lens}))
+    emit({"phase": "spec_timing", "method": "CUDA events, median of 30 "
+          "after 5 warm-up calls, queued behind torch.cuda._sleep",
+          "library_call": "SDPA over K/V already gathered (and "
+          "dequantized) from the pages, boolean mask (gather not timed)",
+          "shapes": {r["name"]: r.pop("shape") for r in rows},
+          "row_tiling": _row_tiling(torch, rng, lens)})
+    return rows
+
+
+def _row_tiling(torch, rng, lens):
+    """What row tiles cost: at G = 8, D = 128 (H_q 16 over H_kv 2) a decode
+    step is one tile of G * D = 1024 outputs and a verify step of Sq = 5
+    is five, each re-streaming the sequence's pages.  Times both on the
+    same fp32 pages, beside the KV bytes read once and once per tile."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    dev = torch.device("cuda")
+    Hq, Hkv, D, sq = 16, 2, 128, SPEC_D + 1
+    pool, tables, ln = _pool_layer(torch, serving, rng, Hq, Hkv, D, lens,
+                                   "float32", dev)
+    kp, vp = pool.k_pages[0], pool.v_pages[0]
+    q = torch.randn(len(lens), Hq, sq, D, generator=rng, device=dev)
+    q1 = q[:, :, :1].contiguous()
+    ql = torch.full((len(lens),), sq, dtype=torch.int32, device=dev)
+    kv_bytes = 4 * 2 * Hkv * D * sum(lens)
+    tiles = -(-(Hq // Hkv) * sq * D // 1024)
+    return {"H_q": Hq, "H_kv": Hkv, "D": D, "Sq": sq, "tiles": tiles,
+            "decode_ms": device_ms(torch, lambda: pa.paged_decode_attention(
+                q1, kp, vp, tables, ln)),
+            "verify_ms": device_ms(torch, lambda: pa.paged_decode_attention(
+                q, kp, vp, tables, ln, q_lengths=ql)),
+            "kv_bytes_once": kv_bytes, "kv_bytes_read": tiles * kv_bytes,
+            "kv_once_bound_ms": 1e3 * kv_bytes / HBM_BYTES_PER_S}
+
+
 def phase_train_timing(torch, bwd_err, launches, cfg, batch):
     """The two backward kernels, and flash_fwd with its lse output, at the
     training shape of the decoder's causal self-attention: [B, H, S, D] =
@@ -1356,23 +1811,34 @@ def main() -> int:
     print(card_line(), flush=True)
     phase_build()
     parity_err = phase_parity(torch)
+    spec_err = phase_spec_parity(torch)
     bwd_err = phase_bwd_parity(torch)
     conv_err = phase_conv_parity(torch, fluid)
     serve_launches, reqs = phase_main_path(torch, np)
+    spec_launches, spec_reqs = phase_spec_main_path(torch, np)
     train_launches, batch, cfg = phase_training(torch, np)
     torch.cuda.empty_cache()
     conv_launches, by_shape, trace = phase_resnet(torch, np, fluid)
     kernels = phase_timing(torch, np, reqs, parity_err, serve_launches)
+    kernels += phase_spec_timing(torch, np, spec_reqs, spec_err,
+                                 spec_launches)
     kernels += phase_train_timing(torch, bwd_err, train_launches, cfg, batch)
     kernels += phase_conv_timing(torch, conv_err, conv_launches, by_shape,
                                  trace)
-    # flash_fwd runs on both paths: its launches are the two runs' sum
-    kernels[0]["launches"] += train_launches["flash_fwd"]
-    kernels[0]["launches_by_path"] = {
-        "serving": serve_launches["flash_fwd"],
-        "training": train_launches["flash_fwd"]}
+    # flash_fwd runs on every path and paged_decode on both fp32 serving
+    # paths: their launches are the counted runs' sums
+    by_path = {"serving": serve_launches["flash_fwd"],
+               "speculative_serving": spec_launches["spec"]["flash_fwd"],
+               "int8_serving": spec_launches["int8"]["flash_fwd"],
+               "training": train_launches["flash_fwd"]}
+    kernels[0]["launches"] = sum(by_path.values())
+    kernels[0]["launches_by_path"] = by_path
     kernels[0]["max_abs_err"] = max(parity_err["flash_fwd"],
                                     bwd_err["flash_fwd"])
+    by_path = {"serving": serve_launches["paged_decode"],
+               "speculative_serving": spec_launches["spec"]["decode_f32"]}
+    kernels[1]["launches"] = sum(by_path.values())
+    kernels[1]["launches_by_path"] = by_path
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

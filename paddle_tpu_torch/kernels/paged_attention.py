@@ -1,28 +1,44 @@
-"""Decode attention over a paged KV pool (counterpart of
-paddle_tpu/kernels/paged_attention.py, the variant the serving decode
-step runs).
+"""Decode and verify attention over a paged KV pool (counterpart of
+paddle_tpu/kernels/paged_attention.py).
 
 ``paged_decode_attention(q, k_pages, v_pages, page_tables, lengths,
-scale)``: one query token per sequence (q [B, H_q, 1, D]) against that
-sequence's cached keys and values, which live in pages of one layer of
-the pool (k_pages/v_pages [H_kv, P, page_size, D]).  ``page_tables`` is
-the flat [B, max_pages] int32 table, zero-padded past each sequence's
-pages (the padded entries point at page 0 and are masked by position);
-``lengths`` [B] holds the valid token counts.  H_q must be a multiple
-of H_kv (GQA): query head h reads KV head h // (H_q / H_kv), and
-anything else raises :class:`GroupedHeadsError`.
+scale, q_lengths=None, k_scales=None, v_scales=None)``: Sq query tokens
+per sequence (q [B, H_q, Sq, D]) against that sequence's cached keys and
+values, which live in pages of one layer of the pool (k_pages/v_pages
+[H_kv, P, page_size, D]).  ``page_tables`` is the flat [B, max_pages]
+int32 table, zero-padded past each sequence's pages (the padded entries
+point at page 0 and are masked by position); ``lengths`` [B] holds the
+valid token counts, the fed tokens included.  H_q must be a multiple of
+H_kv (GQA): query head h reads KV head h // (H_q / H_kv), and anything
+else raises :class:`GroupedHeadsError`.
 
-- On a CUDA tensor it launches ``csrc/paged_decode.cu`` or raises.
-  There is no envelope and no fallback: a geometry the kernel does not
-  take is an error, not a silent switch to the gather.
-- On a CPU tensor it computes :func:`paged_decode_reference`, the plain
-  version: gather the pages, ``repeat_kv``, then reference attention
-  with ``k_lengths``.
+- Sq = 1 is plain decode: the query is the last valid position.
+- Sq > 1 is the speculative verify step: ``q_lengths`` [B] (None: all
+  Sq) gives each sequence's valid query rows, and query row t of
+  sequence b sits at position ``lengths[b] - q_lengths[b] + t``; key j
+  is visible to it iff ``j <= lengths[b] - q_lengths[b] + t`` and
+  ``j < lengths[b]``.  Rows t >= q_lengths[b] hold values nobody reads.
+- An int8 pool passes its layer's per-page fp32 ``k_scales`` /
+  ``v_scales`` [P] (together); K and V dequantize as int8 * scale of
+  their own page.  An int8 pool without scales raises.
 
-``paged_decode_attention.launches`` counts kernel launches.  Still to
-be ported from the JAX kernel: multi-token verify (Sq > 1), int8 pages
-with per-page scales, explicit page starts, two-level tables and the
-window + sink mask.
+Four kernel variants, one CUDA kernel (``csrc/paged_decode.cu``):
+``decode_f32``, ``verify_f32``, ``decode_i8`` and ``verify_i8``.
+
+- On a CUDA tensor it launches the variant or raises.  There is no
+  envelope and no fallback: a geometry the kernel does not take is an
+  error, not a silent switch to the gather.
+- On a CPU tensor it computes the plain version:
+  :func:`paged_decode_reference` for Sq = 1 (gather, ``repeat_kv``,
+  reference attention with ``k_lengths``) and
+  :func:`paged_verify_reference` for Sq > 1 (a dense masked softmax over
+  the gathered view, the JAX ``_reference_verify``); an int8 pool
+  dequantizes in the gather.
+
+``paged_decode_attention.launches`` counts kernel launches, and
+``paged_decode_attention.launches_by_variant`` splits them by variant.
+Still to be ported from the JAX kernel: explicit page starts with the
+window + sink mask, and two-level tables.
 """
 
 from __future__ import annotations
@@ -34,13 +50,14 @@ import math
 import torch
 
 from . import _build
-from .flash_attention import reference_attention
+from .flash_attention import NEG_INF, reference_attention
 
-__all__ = ["GroupedHeadsError", "gather_kv_pages", "paged_decode_attention",
-           "paged_decode_reference", "repeat_kv"]
+__all__ = ["GroupedHeadsError", "VARIANTS", "gather_kv_pages",
+           "paged_decode_attention", "paged_decode_reference",
+           "paged_verify_reference", "repeat_kv", "reset_launches"]
 
+VARIANTS = ("decode_f32", "verify_f32", "decode_i8", "verify_i8")
 _HEAD_DIMS = (64, 128)
-_MAX_GROUP_OUTPUTS = 1024  # G * D the kernel's accumulators hold
 _MAX_GRID_Y = 65535
 
 
@@ -70,51 +87,123 @@ def repeat_kv(k, v, group: int):
             torch.repeat_interleave(v, group, dim=1))
 
 
-def gather_kv_pages(pages, page_tables) -> torch.Tensor:
+def gather_kv_pages(pages, page_tables, scales=None) -> torch.Tensor:
     """pages [H_kv, P, page_size, D] (one layer of the pool) + page_tables
     [B, max_pages] -> contiguous [B, H_kv, max_pages * page_size, D].
-    Rows past a sequence's length hold whatever the padding pages hold:
-    callers mask them through k_lengths."""
+    With ``scales`` (the layer's [P] per-page fp32 scales of an int8
+    pool) the gathered content dequantizes to fp32, each page's rows
+    times its own scale.  Rows past a sequence's length hold whatever
+    the padding pages hold: callers mask them."""
     tables = torch.as_tensor(page_tables, device=pages.device).to(torch.long)
     b, n_pages = tables.shape
-    g = pages.index_select(1, tables.reshape(-1))  # [H, B*maxp, ps, D]
+    flat = tables.reshape(-1)
+    g = pages.index_select(1, flat)  # [H, B*maxp, ps, D]
+    if scales is not None:
+        s = torch.as_tensor(scales, device=pages.device).to(torch.float32)
+        g = g.to(torch.float32) * s.index_select(0, flat)[None, :, None,
+                                                          None]
     h, _, ps, d = g.shape
     return g.reshape(h, b, n_pages * ps, d).permute(1, 0, 2, 3).contiguous()
 
 
+def _gathered(k_pages, v_pages, page_tables, lengths, k_scales, v_scales):
+    """Gathered (and dequantized) K and V [B, H_kv, S, D], with the rows
+    past each length zeroed: padded table entries read page 0, and
+    another sequence's non-finite content there must not reach this one
+    through 0 * NaN (the kernel never loads those rows)."""
+    k = gather_kv_pages(k_pages, page_tables, k_scales)
+    v = gather_kv_pages(v_pages, page_tables, v_scales)
+    ln = torch.as_tensor(lengths, device=k.device).to(torch.long).reshape(-1)
+    dead = (torch.arange(k.shape[2], device=k.device)[None, :]
+            >= ln[:, None])[:, None, :, None]
+    return k.masked_fill(dead, 0.0), v.masked_fill(dead, 0.0), ln
+
+
 def paged_decode_reference(q, k_pages, v_pages, page_tables, lengths,
-                           scale=None) -> torch.Tensor:
-    """Plain version: gather, repeat_kv, reference attention over the
-    valid ``lengths`` keys.  q [B, H_q, 1, D] -> [B, H_q, 1, D]."""
+                           scale=None, k_scales=None,
+                           v_scales=None) -> torch.Tensor:
+    """Plain version of the Sq = 1 variants: gather (dequantizing an int8
+    pool), repeat_kv, reference attention over the valid ``lengths``
+    keys.  q [B, H_q, 1, D] -> [B, H_q, 1, D]."""
     G = _group_size(q.shape[1], k_pages.shape[0])
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    k = gather_kv_pages(k_pages, page_tables)
-    v = gather_kv_pages(v_pages, page_tables)
+    k, v, ln = _gathered(k_pages, v_pages, page_tables, lengths, k_scales,
+                         v_scales)
     k, v = repeat_kv(k, v, G)
     return reference_attention(q, k, v, causal=False, scale=scale,
-                               k_lengths=lengths)
+                               k_lengths=ln)
+
+
+def paged_verify_reference(q, k_pages, v_pages, page_tables, lengths,
+                           q_lengths=None, scale=None, k_scales=None,
+                           v_scales=None) -> torch.Tensor:
+    """Plain version of the Sq > 1 variants (JAX ``_reference_verify``):
+    dense attention over the gathered view with the per-row causal
+    frontier — key j visible to row t of sequence b iff ``j <=
+    lengths[b] - q_lengths[b] + t`` and ``j < lengths[b]``.  A row with
+    no visible key returns zeros, as the kernel does.  q [B, H_q, Sq, D]
+    -> [B, H_q, Sq, D]."""
+    B, Hq, Sq, D = q.shape
+    G = _group_size(Hq, k_pages.shape[0])
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    k, v, ln = _gathered(k_pages, v_pages, page_tables, lengths, k_scales,
+                         v_scales)
+    k, v = repeat_kv(k, v, G)
+    ql = (torch.full((B,), Sq, device=q.device) if q_lengths is None
+          else torch.as_tensor(q_lengths, device=q.device).reshape(-1))
+    pos_q = (ln - ql.to(torch.long))[:, None] + torch.arange(
+        Sq, device=q.device)[None, :]  # [B, Sq]
+    j = torch.arange(k.shape[2], device=q.device)
+    vis = (j[None, None, :] <= pos_q[:, :, None]) \
+        & (j[None, None, :] < ln[:, None, None])  # [B, Sq, S]
+    scores = torch.matmul(q, k.transpose(-1, -2)) * scale
+    scores = scores.masked_fill(~vis[:, None], NEG_INF)
+    weights = torch.softmax(scores, dim=-1).masked_fill(
+        ~vis.any(-1)[:, None, :, None], 0.0)
+    return torch.matmul(weights, v)
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
-    fn = _build.library("paged_decode").paged_decode_f32
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p])
+def _entry(variant: str):
+    fn = getattr(_build.library("paged_decode"), "paged_" + variant)
+    if variant == "decode_f32":
+        # q, k, v, tables, lengths, o; B, H_kv, G, P, page_size,
+        # max_pages, D; scale; stream
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_void_p])
+    else:
+        # q, k, v, k_scales, v_scales, tables, lengths, q_lengths, o;
+        # B, H_kv, G, Sq, P, page_size, max_pages, D; scale; stream
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(q, k_pages, v_pages, tables, lengths, group: int) -> None:
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+def _check(q, k_pages, v_pages, tables, lengths, q_lengths, k_scales,
+           v_scales) -> None:
+    kv_dtype = k_pages.dtype
+    if kv_dtype not in (torch.float32, torch.int8):
+        raise TypeError(f"paged_decode takes a float32 or int8 pool, got "
+                        f"{kv_dtype}")
+    named = [("q", q, torch.float32), ("k_pages", k_pages, kv_dtype),
+             ("v_pages", v_pages, kv_dtype)]
+    if k_scales is not None:
+        named += [("k_scales", k_scales, torch.float32),
+                  ("v_scales", v_scales, torch.float32)]
+    for name, t, dtype in named:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(
-                f"paged_decode takes a float32 pool and query, {name} is "
-                f"{t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"paged_decode: {name} must be {dtype}, got "
+                            f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             "loads 16 bytes a thread)")
     if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(
             f"pools must be matching [H_kv, P, page_size, D], got "
@@ -124,53 +213,102 @@ def _check(q, k_pages, v_pages, tables, lengths, group: int) -> None:
         raise ValueError(f"pool head_dim {k_pages.shape[3]} != query {D}")
     if D not in _HEAD_DIMS:
         raise ValueError(f"paged_decode supports head_dim {_HEAD_DIMS}, got {D}")
-    if group * D > _MAX_GROUP_OUTPUTS:
-        raise ValueError(
-            f"group {group} x head_dim {D} exceeds the kernel's "
-            f"{_MAX_GROUP_OUTPUTS} accumulators per block")
     if B > _MAX_GRID_Y:
         raise ValueError(f"batch {B} exceeds the grid limit {_MAX_GRID_Y}")
     if tables.dim() != 2 or tables.shape[0] != B or lengths.shape != (B,):
         raise ValueError(
             f"tables must be [B={B}, max_pages] and lengths [B], got "
             f"{tuple(tables.shape)} and {tuple(lengths.shape)}")
+    if q_lengths is not None and q_lengths.shape != (B,):
+        raise ValueError(f"q_lengths must be [B={B}], got "
+                         f"{tuple(q_lengths.shape)}")
+    if k_scales is not None and (k_scales.shape != (k_pages.shape[1],)
+                                 or v_scales.shape != k_scales.shape):
+        raise ValueError(f"scales must be [P={k_pages.shape[1]}], got "
+                         f"{tuple(k_scales.shape)} and "
+                         f"{tuple(v_scales.shape)}")
+
+
+def _int32(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, device=device).to(torch.int32).contiguous()
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_tables, lengths,
-                           scale=None) -> torch.Tensor:
-    """q [B, H_q, 1, D]; k_pages/v_pages [H_kv, P, page_size, D];
-    page_tables [B, max_pages] int32; lengths [B] (the fed token already
-    appended).  Returns [B, H_q, 1, D]."""
-    if q.dim() != 4 or q.shape[2] != 1:
+                           scale=None, q_lengths=None, k_scales=None,
+                           v_scales=None) -> torch.Tensor:
+    """q [B, H_q, Sq, D] fp32; k_pages/v_pages [H_kv, P, page_size, D]
+    fp32 or int8; page_tables [B, max_pages] int32; lengths [B] (the fed
+    tokens already appended); q_lengths [B] (Sq > 1 only); k_scales /
+    v_scales [P] fp32 (int8 pools only).  Returns [B, H_q, Sq, D] fp32."""
+    if q.dim() != 4:
+        raise ValueError(f"decode query must be [B, H, Sq, D], got "
+                         f"{tuple(q.shape)}")
+    Sq = q.shape[2]
+    if Sq < 1:
+        raise ValueError(f"decode query must carry >= 1 token, got "
+                         f"{tuple(q.shape)}")
+    if Sq == 1 and q_lengths is not None:
         raise ValueError(
-            f"decode query must be [B, H, 1, D], got {tuple(q.shape)} — "
-            "the multi-token verify variant is not ported yet")
+            "q_lengths is the multi-token verify contract — a single-"
+            "token decode step has nothing ragged to mask")
     G = _group_size(q.shape[1], k_pages.shape[0])
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales must be passed together")
+    quantized = k_pages.dtype == torch.int8
+    if quantized and k_scales is None:
+        raise ValueError(
+            "an int8 KV pool needs its per-page k_scales/v_scales — "
+            "raw int8 content is meaningless without them")
+    if k_scales is not None and not quantized:
+        raise ValueError("k_scales/v_scales dequantize an int8 pool; this "
+                         f"pool is {k_pages.dtype}")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        return paged_decode_reference(q, k_pages, v_pages, page_tables,
-                                      lengths, scale)
+        if Sq == 1:
+            return paged_decode_reference(q, k_pages, v_pages, page_tables,
+                                          lengths, scale, k_scales, v_scales)
+        return paged_verify_reference(q, k_pages, v_pages, page_tables,
+                                      lengths, q_lengths, scale, k_scales,
+                                      v_scales)
     if q.device.type != "cuda":
         raise ValueError(
             f"paged_decode_attention runs on cuda or cpu, not {q.device}")
-    tables = torch.as_tensor(page_tables, device=q.device).to(
-        torch.int32).contiguous()
-    lens = torch.as_tensor(lengths, device=q.device).to(
-        torch.int32).reshape(-1).contiguous()
-    _check(q, k_pages, v_pages, tables, lens, G)
-    B, Hq, _, D = q.shape
+    tables = _int32(page_tables, q.device)
+    lens = _int32(lengths, q.device).reshape(-1)
+    qlens = None if q_lengths is None else _int32(q_lengths,
+                                                  q.device).reshape(-1)
+    _check(q, k_pages, v_pages, tables, lens, qlens, k_scales, v_scales)
+    variant = ("verify" if Sq > 1 else "decode") \
+        + ("_i8" if quantized else "_f32")
+    B, _, _, D = q.shape
     Hkv, P, page_size, _ = k_pages.shape
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if variant == "decode_f32":
+        args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                B, Hkv, G, P, page_size, tables.shape[1], D, float(scale),
+                stream)
+    else:
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                ptr(k_scales), ptr(v_scales), tables.data_ptr(),
+                lens.data_ptr(), ptr(qlens), out.data_ptr(),
+                B, Hkv, G, Sq, P, page_size, tables.shape[1], D,
+                float(scale), stream)
     with torch.cuda.device(q.device):  # launch on the tensors' card
-        err = _entry()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                       tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                       B, Hkv, G, P, page_size, tables.shape[1], D,
-                       float(scale),
-                       torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "paged_decode")
+        err = _entry(variant)(*args)
+    _build.check(err, "paged_" + variant)
     paged_decode_attention.launches += 1
+    paged_decode_attention.launches_by_variant[variant] += 1
     return out
 
 
-paged_decode_attention.launches = 0
+def reset_launches() -> None:
+    """Zero the launch counters (total and by variant)."""
+    paged_decode_attention.launches = 0
+    paged_decode_attention.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+reset_launches()

@@ -1,5 +1,6 @@
 """Serving tier of the port (counterpart of paddle_tpu/serving): the paged
-KV pool and greedy continuous-batching decode."""
+KV pool (fp32 or int8) and greedy continuous-batching decode with greedy
+speculative decoding."""
 
 from ..kernels.paged_attention import GroupedHeadsError
 from .generate import (
@@ -15,6 +16,7 @@ from .generate import (
     params_from_jax,
 )
 from .kvcache import KVCachePool, PagePoolExhausted, SequenceHandle
+from .speculative import PromptLookupDrafter
 
 __all__ = [
     "ContinuousBatchingLoop",
@@ -25,6 +27,7 @@ __all__ = [
     "KVCachePool",
     "NonFiniteSequenceError",
     "PagePoolExhausted",
+    "PromptLookupDrafter",
     "SequenceHandle",
     "TransformerDecoder",
     "full_decode",

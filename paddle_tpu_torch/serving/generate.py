@@ -1,11 +1,12 @@
-"""Greedy continuous-batching decode over the paged KV pool (counterpart
-of paddle_tpu/serving/generate.py, the single-device greedy slice).
+"""Greedy continuous-batching decode over the paged KV pool, with greedy
+speculative decoding (counterpart of paddle_tpu/serving/generate.py,
+the single-device greedy slice).
 
 The model is the decoder half of the repo's Transformer: post-norm
 residual blocks (LayerNorm(x + sublayer(x))), scaled embedding plus
 sinusoid positions, tied input/output embeddings, no cross-attention.
 :class:`TransformerDecoder` holds it as an ``nn.Module`` and runs the
-two serving steps:
+serving steps:
 
 - ``prefill_step``: ONE causal pass over a co-admitted group's prompts,
   padded to the group's longest and masked through ``k_lengths``; it
@@ -13,23 +14,31 @@ two serving steps:
   next-token logits after each prompt.  Attention is the flash kernel.
 - ``decode_step``: one token per sequence; its K/V is appended to the
   pool and attention is the paged decode kernel over the page tables.
+- ``verify_step``: a block of 1 + d tokens per sequence (the last
+  committed token and d drafted ones) in one step; attention is the
+  paged kernel's verify variant, each row causal inside the block.
 
 :class:`ContinuousBatchingLoop` keeps up to ``max_batch`` sequences in
 flight.  Admission is reservation-based and FIFO (a request enters only
 when the pool covers every admitted sequence's worst case), each
 admitted group gets one batched prefill, decoding is greedy argmax, and
 a sequence retires on ``eos_id`` or ``max_new_tokens`` and returns its
-pages.  A non-finite logits row quarantines only its own sequence; any
+pages.  With ``speculate=d`` each decoding sequence drafts up to d
+tokens by prompt lookup (``speculative.PromptLookupDrafter``), one
+verify step checks every block, the longest prefix the model agrees
+with is committed, and ``pool.truncate_seq`` rolls the rejected tokens
+back.  A non-finite logits row quarantines only its own sequence; any
 exception out of a step frees every stepping sequence's pages before it
-propagates.
+propagates.  Both steps pass an int8 pool's per-page scales to the
+kernel.
 
 ``full_forward`` / ``full_decode`` are the oracles: per-sequence greedy
 decode recomputing the whole prefix with plain attention and no cache.
 
-Left for later slices: speculation and verify, sampling, the prefix
-cache and chunked prefill, adapters, int8/bf16 pools, window and sink
-decode, two-level tables, SPMD programs, the tiered KV store and the
-Engine front end.
+Left for later slices: sampling and sampled speculation, the prefix
+cache with chunked prefill (and with it the corpus drafter), adapters,
+bf16 pools, window and sink decode, two-level tables, SPMD programs,
+the tiered KV store and the Engine front end.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ from ..kernels.paged_attention import (
 )
 from ..models.transformer import _sinusoid_table
 from .kvcache import KVCachePool, PagePoolExhausted
+from .speculative import PromptLookupDrafter
 
 __all__ = [
     "ContinuousBatchingLoop",
@@ -244,9 +254,9 @@ class _DecoderLayer(nn.Module):
 class TransformerDecoder(nn.Module):
     """The serving decoder as an ``nn.Module`` of fp32 buffers on
     ``device`` (None: the card).  Weights start at zero; load them with
-    :meth:`load_jax_params`.  ``attend_prefill``/``attend_decode`` are
-    the two attention calls the steps make — the flash and paged decode
-    kernels."""
+    :meth:`load_jax_params`.  ``attend_prefill``, ``attend_decode`` and
+    ``attend_verify`` are the attention calls the steps make — the flash
+    kernel and the paged kernel's decode and verify variants."""
 
     def __init__(self, cfg: DecodeConfig, device=None):
         super().__init__()
@@ -284,11 +294,23 @@ class TransformerDecoder(nn.Module):
         return flash_attention(q, k, v, causal=True,
                                scale=self.cfg.head_dim ** -0.5, k_lengths=lens)
 
-    def attend_decode(self, q, k_pages, v_pages, tables, lengths
-                      ) -> torch.Tensor:
-        """Sq=1 attention over one layer of the pool (paged decode kernel)."""
+    def attend_decode(self, q, k_pages, v_pages, tables, lengths,
+                      k_scales=None, v_scales=None) -> torch.Tensor:
+        """Sq=1 attention over one layer of the pool (paged kernel,
+        decode variant; scales for an int8 pool)."""
         return paged_decode_attention(q, k_pages, v_pages, tables, lengths,
-                                      scale=self.cfg.head_dim ** -0.5)
+                                      scale=self.cfg.head_dim ** -0.5,
+                                      k_scales=k_scales, v_scales=v_scales)
+
+    def attend_verify(self, q, k_pages, v_pages, tables, lengths,
+                      q_lengths, k_scales=None, v_scales=None
+                      ) -> torch.Tensor:
+        """Multi-token attention over one layer of the pool, q [B, H, Sq,
+        D] with ragged ``q_lengths`` (paged kernel, verify variant)."""
+        return paged_decode_attention(q, k_pages, v_pages, tables, lengths,
+                                      scale=self.cfg.head_dim ** -0.5,
+                                      q_lengths=q_lengths,
+                                      k_scales=k_scales, v_scales=v_scales)
 
     @torch.inference_mode()
     def decode_step(self, pool: KVCachePool, seq_ids: Sequence[int],
@@ -301,7 +323,6 @@ class TransformerDecoder(nn.Module):
         h = self.embed[self._index(tokens)] * float(np.sqrt(d)) \
             + self.pos[self._index(positions)]
         pages, slots = pool.append_token(seq_ids)
-        pages, slots = self._index(pages), self._index(slots)
         tables, lengths = pool.page_table_batch(seq_ids)
         tables = torch.as_tensor(tables, device=self.device)
         lengths = torch.as_tensor(lengths, device=self.device)
@@ -311,9 +332,80 @@ class TransformerDecoder(nn.Module):
             k = (h @ lp["wk"]).reshape(B, Hkv, Dh)
             v = (h @ lp["wv"]).reshape(B, Hkv, Dh)
             pool.write_kv(li, pages, slots, k, v)
+            k_scales, v_scales = pool.layer_scales(li)
             attn = self.attend_decode(q[:, :, None, :], pool.k_pages[li],
-                                      pool.v_pages[li], tables, lengths)
+                                      pool.v_pages[li], tables, lengths,
+                                      k_scales, v_scales)
             attn = attn[:, :, 0, :].reshape(B, d)
+            h = _layernorm(h + attn @ lp["wo"], lp["ln1_g"], lp["ln1_b"])
+            h = _ffn_block(h, lp)
+        return h @ self.embed.T
+
+    @torch.inference_mode()
+    def verify_step(self, pool: KVCachePool, seq_ids: Sequence[int],
+                    blocks: Sequence[Sequence[int]],
+                    start_positions: Sequence[int],
+                    pad_to: Optional[int] = None) -> torch.Tensor:
+        """One speculative verify step: sequence i feeds ``blocks[i]`` —
+        its last committed token plus d_i drafted ones — from absolute
+        position ``start_positions[i]``, appends every fed token's K/V to
+        the pool in ONE atomic ``append_tokens`` claim, and returns the
+        logits [B, Sq, V] at every fed position: row t predicts the token
+        at position start+t+1, which draft token t+1 claims to be.  Sq is
+        the longest block, or ``pad_to``.  Rows past ``len(blocks[i])``
+        are padding the caller ignores.  A block of length 1 computes
+        what ``decode_step`` computes for that sequence.
+
+        The JAX step pads its K/V scatter to B * Sq rows and its tables to
+        a multiple of 8 pages, so that XLA compiles each shape once;
+        eager torch has no such cost, and this step writes only the valid
+        rows and passes the tables as they are.  The caller owns
+        acceptance and rollback (``pool.truncate_seq``)."""
+        cfg = self.cfg
+        lens = np.asarray([len(b) for b in blocks], np.int32)
+        if not len(lens) or lens.min() < 1:
+            raise ValueError("verify needs >= 1 fed token per sequence")
+        starts = np.asarray(start_positions, np.int64)
+        B, Sq = len(blocks), int(lens.max())
+        if pad_to is not None:
+            if pad_to < Sq:
+                raise ValueError(f"pad_to {pad_to} < longest block {Sq}")
+            Sq = int(pad_to)
+        if int((starts + lens).max()) > cfg.max_length:
+            # before append_tokens: a failed verify must not leave claimed
+            # slots with no K/V behind
+            raise ValueError(
+                f"verify block reaches position {int((starts + lens).max())}"
+                f" > max_length {cfg.max_length}")
+        d, H, Dh, Hkv = cfg.d_model, cfg.n_head, cfg.head_dim, cfg.num_kv_heads
+        tokens = np.zeros((B, Sq), np.int64)
+        for i, blk in enumerate(blocks):
+            tokens[i, :lens[i]] = blk
+        pages, slots = pool.append_tokens(seq_ids, lens)
+        tables, lengths = pool.page_table_batch(seq_ids)
+        tables = torch.as_tensor(tables, device=self.device)
+        lengths = torch.as_tensor(lengths, device=self.device)
+        q_lengths = torch.as_tensor(lens, device=self.device)
+        b_idx = self._index(np.repeat(np.arange(B), lens))
+        t_idx = self._index(np.concatenate([np.arange(n) for n in lens]))
+        # padded rows: positions clamped, their values unread
+        pos = np.minimum(starts[:, None] + np.arange(Sq)[None, :],
+                         cfg.max_length - 1)
+        h = self.embed[self._index(tokens)] * float(np.sqrt(d)) \
+            + self.pos[self._index(pos)]  # [B, Sq, d]
+        for li, layer in enumerate(self.layers):
+            lp = layer.params()
+            q = (h @ lp["wq"]).reshape(B, Sq, H, Dh)
+            k = (h @ lp["wk"]).reshape(B, Sq, Hkv, Dh)
+            v = (h @ lp["wv"]).reshape(B, Sq, Hkv, Dh)
+            # valid rows only ([T, H_kv, Dh] in claim order)
+            pool.write_kv(li, pages, slots, k[b_idx, t_idx], v[b_idx, t_idx])
+            k_scales, v_scales = pool.layer_scales(li)
+            attn = self.attend_verify(
+                q.transpose(1, 2).contiguous(), pool.k_pages[li],
+                pool.v_pages[li], tables, lengths, q_lengths, k_scales,
+                v_scales)  # [B, H, Sq, Dh]
+            attn = attn.transpose(1, 2).reshape(B, Sq, d)
             h = _layernorm(h + attn @ lp["wo"], lp["ln1_g"], lp["ln1_b"])
             h = _ffn_block(h, lp)
         return h @ self.embed.T
@@ -344,7 +436,6 @@ class TransformerDecoder(nn.Module):
             tokens[i, :lens[i]] = p
         # flat (sequence order, token order) claim — matches append_tokens
         pages, slots = pool.append_tokens(seq_ids, lens)
-        pages, slots = self._index(pages), self._index(slots)
         b_idx = self._index(np.repeat(np.arange(B), lens))
         t_idx = self._index(np.concatenate([np.arange(n) for n in lens]))
         klen = torch.as_tensor(lens, device=self.device)
@@ -417,14 +508,31 @@ class ContinuousBatchingLoop:
     (ceil((len(prompt)+max_new)/page_size) pages), so no append can fail
     mid-decode; waiting requests admit in FIFO order as retirements free
     pages.  Each co-admitted group runs ONE ``prefill_step``; the loop
-    then re-admits before decoding.  Counters: ``steps``,
-    ``prefill_steps``, ``decode_steps``, ``quarantined``; host-clock
-    durations of each step (ending after the logits reach the host) in
-    ``prefill_step_s`` and ``decode_step_s``."""
+    then re-admits before decoding.
+
+    ``speculate=d`` (0: off) arms greedy speculative decoding: each
+    decoding sequence drafts up to min(d, its remaining max_new) tokens
+    with ``drafter`` (None: a ``PromptLookupDrafter(max_draft=d)``; a
+    drafter with ``stateful`` set gets ``seq_id=`` and a ``release`` on
+    retirement and quarantine); when any block is longer than one token
+    the step is a ``verify_step``, and each sequence commits the longest
+    prefix of its draft that the model's argmax agrees with, plus the
+    model's own next token, honouring EOS and max_new inside the block;
+    the rejected tokens leave the pool through ``truncate_seq``.  Greedy
+    output is token-identical to unspeculated decode.
+
+    Counters: ``steps``, ``prefill_steps``, ``decode_steps`` (verify
+    steps included), ``spec_steps`` (verify steps), ``drafted_tokens``,
+    ``accepted_tokens``, ``rolled_back_tokens``, ``quarantined``;
+    host-clock durations of each step (ending after the logits reach the
+    host) in ``prefill_step_s``, ``decode_step_s`` and
+    ``verify_step_s``."""
 
     def __init__(self, params: Union[Dict, TransformerDecoder],
                  cfg: DecodeConfig, pool: KVCachePool, max_batch: int = 4,
-                 device=None):
+                 device=None, speculate: int = 0, drafter=None):
+        if int(speculate) < 0:
+            raise ValueError("speculate must be >= 0")
         self.device = resolve_device(device)
         if pool.device != self.device:
             raise ValueError(f"pool lives on {pool.device}, the loop runs "
@@ -444,13 +552,55 @@ class ContinuousBatchingLoop:
         self.cfg = cfg
         self.pool = pool
         self.max_batch = int(max_batch)
+        self._speculate = int(speculate)
+        self.drafter = drafter if drafter is not None else (
+            PromptLookupDrafter(max_draft=self._speculate)
+            if self._speculate else None)
         self._next_seq_id = 0
         self.steps = 0
         self.prefill_steps = 0
         self.decode_steps = 0
         self.quarantined = 0
+        self.spec_steps = 0
+        self.drafted_tokens = 0
+        self.accepted_tokens = 0
+        self.rolled_back_tokens = 0
         self.prefill_step_s: List[float] = []
         self.decode_step_s: List[float] = []
+        self.verify_step_s: List[float] = []
+
+    def acceptance_rate(self) -> float:
+        """Accepted / drafted tokens (0.0 before any draft)."""
+        return (self.accepted_tokens / self.drafted_tokens
+                if self.drafted_tokens else 0.0)
+
+    def _spec_room(self, a: "_Active") -> int:
+        """Draft tokens sequence `a` may carry this step: the loop's d,
+        capped by its remaining max_new headroom — so the fed block never
+        passes the worst case its admission reserved."""
+        if not self._speculate:
+            return 0
+        return min(self._speculate,
+                   a.req.max_new_tokens - len(a.result.tokens))
+
+    def _draft_block(self, a: "_Active") -> List[int]:
+        """The last committed token plus the drafter's proposal, clamped
+        to the room (a drafter that ignores its limit must not pass the
+        reservation)."""
+        blk = [a.result.tokens[-1]]
+        room = self._spec_room(a)
+        if room > 0 and self.drafter is not None:
+            ctx = list(a.result.prompt) + a.result.tokens
+            if getattr(self.drafter, "stateful", False):
+                proposal = self.drafter.draft(ctx, room, seq_id=a.seq_id)
+            else:
+                proposal = self.drafter.draft(ctx, room)
+            blk += [int(t) for t in list(proposal)[:room]]
+        return blk
+
+    def _release_draft(self, a: "_Active") -> None:
+        if getattr(self.drafter, "stateful", False):
+            self.drafter.release(a.seq_id)
 
     def _footprint(self, req: DecodeRequest) -> int:
         """Worst-case pages a request pulls from the free list."""
@@ -489,11 +639,13 @@ class ContinuousBatchingLoop:
             nonlocal reserved_pages
             host = logits.float().cpu().numpy()
             now = time.perf_counter()  # after the sync: true step end
-            finite = np.isfinite(host).all(axis=1)
+            # every axis but the batch axis: [B, V] and verify's [B, Sq, V]
+            finite = np.isfinite(host.reshape(len(batch), -1)).all(axis=1)
             for i in np.flatnonzero(~finite):
                 a = batch[i]
                 self.pool.scrub_seq_pages(a.seq_id)
                 self.pool.free_seq(a.seq_id)
+                self._release_draft(a)
                 active.remove(a)
                 a.result.error = NonFiniteSequenceError(a.seq_id, step_idx)
                 a.result.finished_at = now
@@ -501,9 +653,13 @@ class ContinuousBatchingLoop:
                 self.quarantined += 1
             return host, set(np.flatnonzero(finite).tolist()), now
 
-        def emit(a: _Active, row: np.ndarray, now: float) -> bool:
-            """Record the greedy token; True when the sequence is done."""
-            tok = int(row.argmax())
+        def emit(a: _Active, row: np.ndarray, now: float,
+                 tok: Optional[int] = None) -> bool:
+            """Record one token (None: the greedy argmax of ``row``); True
+            when the sequence is done — checked after every token, so an
+            EOS inside an accepted draft block retires it there."""
+            if tok is None:
+                tok = int(row.argmax())
             a.result.tokens.append(tok)
             a.result.logits.append(row)
             if a.result.ttft_s is None:
@@ -518,7 +674,49 @@ class ContinuousBatchingLoop:
                 active.remove(a)
                 a.result.finished_at = now
                 self.pool.free_seq(a.seq_id)
+                self._release_draft(a)
                 reserved_pages -= a.charged
+
+        def verify(batch: List[_Active], blocks: List[List[int]],
+                   t0: float, step_idx: int) -> None:
+            """One verify step over every sequence's block, then the
+            acceptance walk and rollback of each."""
+            logits3 = self.model.verify_step(
+                self.pool, [a.seq_id for a in batch], blocks,
+                [a.pos for a in batch], pad_to=self._speculate + 1)
+            self.steps += 1
+            self.decode_steps += 1
+            self.spec_steps += 1
+            self.drafted_tokens += sum(len(b) - 1 for b in blocks)
+            host, ok, now = quarantine(batch, logits3, step_idx)
+            self.verify_step_s.append(now - t0)
+            done = []
+            for i, a in enumerate(batch):
+                if i not in ok:
+                    continue  # quarantined (pages already freed)
+                blk, start = blocks[i], a.pos
+                # ACCEPTANCE walk: row t predicts position start+t+1; emit
+                # its argmax and walk on only while it matches the draft
+                # (whose K/V is then already in the pool)
+                accepted, fin = 0, False
+                for t in range(len(blk)):
+                    tok = int(host[i, t].argmax())
+                    fed = t + 1 < len(blk) and tok == blk[t + 1]
+                    accepted += fed
+                    fin = emit(a, host[i, t], now, tok=tok)
+                    if fin or not fed:
+                        break
+                self.accepted_tokens += accepted
+                # ROLLBACK: rejected draft tokens, and fed tokens past an
+                # in-block EOS or max_new, leave the page table
+                new_len = start + 1 + accepted
+                if start + len(blk) > new_len:
+                    self.pool.truncate_seq(a.seq_id, new_len)
+                    self.rolled_back_tokens += start + len(blk) - new_len
+                a.pos = new_len
+                if fin:
+                    done.append(a)
+            retire(done, now)
 
         try:
             while waiting or active:
@@ -559,8 +757,12 @@ class ContinuousBatchingLoop:
                     continue  # re-admit into freed slots before decoding
 
                 batch = list(active)
+                blocks = [self._draft_block(a) for a in batch]
                 t0 = time.perf_counter()
                 step_idx = self.steps
+                if max(len(b) for b in blocks) > 1:
+                    verify(batch, blocks, t0, step_idx)
+                    continue
                 logits = self.model.decode_step(
                     self.pool, [a.seq_id for a in batch],
                     [a.result.tokens[-1] for a in batch],
@@ -580,6 +782,7 @@ class ContinuousBatchingLoop:
             # pages go back to the pool before the error propagates
             for a in active:
                 self.pool.free_seq(a.seq_id)
+                self._release_draft(a)
             active.clear()
             raise
         return results

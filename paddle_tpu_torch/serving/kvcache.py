@@ -1,5 +1,5 @@
 """Paged KV-cache pool (counterpart of paddle_tpu/serving/kvcache.py,
-reduced to what greedy continuous batching calls).
+reduced to what greedy continuous batching with speculation calls).
 
 The pool is one preallocated torch tensor per K and V of shape
 ``[num_layers, H_kv, num_pages, page_size, head_dim]`` on the pool's
@@ -21,11 +21,20 @@ the integer selects first, ``pages, slots`` stay adjacent and the view
 is ``[H, T, D]`` — so the port transposes the ``[T, H, D]`` rows before
 the write.
 
+``truncate_seq`` is the speculative rollback: rejected draft tokens
+leave the table, and only pages it empties return to the free list.
+
+``dtype="int8"`` pools hold amax-quantized pages with one fp32 scale per
+(layer, page) for each of K and V, in ``k_scales``/``v_scales`` [L, P]
+on the pool's DEVICE (0 = no content), where the JAX pool keeps them in
+host numpy.  ``write_kv`` quantizes with the JAX pool's arithmetic (see
+``_quantized_write``); freed, truncated-away and scrubbed pages clear
+their scales.
+
 Left for later slices: refcounted pages and copy-on-write (prefix
-cache), int8/bf16 pages with scales, truncate (speculation), export and
-import (tiered KV, fleet handoff), window eviction, two-level tables and
-defrag.  The pool is driven from one thread (the decode loop) and takes
-no lock.
+cache), bf16 pages, export and import (tiered KV, fleet handoff),
+window eviction, two-level tables and defrag.  The pool is driven from
+one thread (the decode loop) and takes no lock.
 """
 
 from __future__ import annotations
@@ -59,20 +68,29 @@ class SequenceHandle:
         return len(self.pages) * page_size
 
 
+_DTYPES = {"float32": torch.float32, "int8": torch.int8}
+
+
 class KVCachePool:
     """Preallocated paged K/V storage for every layer of one model.
 
-    Pages are float32 (bf16 and int8 pools are not ported yet).
-    ``num_heads`` is the model's QUERY head count; the pool stores
-    ``num_kv_heads`` (None: num_heads) heads, and ``H_q % H_kv != 0``
-    raises GroupedHeadsError.  ``device=None`` is the card (raises
-    without one); pass ``device="cpu"`` explicitly for the CPU."""
+    ``dtype`` is "float32" (default) or "int8" (per-page scales; bf16
+    pools are not ported yet).  ``num_heads`` is the model's QUERY head
+    count; the pool stores ``num_kv_heads`` (None: num_heads) heads, and
+    ``H_q % H_kv != 0`` raises GroupedHeadsError.  ``device=None`` is
+    the card (raises without one); pass ``device="cpu"`` explicitly for
+    the CPU."""
 
     def __init__(self, num_pages: int, page_size: int, num_layers: int,
                  num_heads: int, head_dim: int,
-                 num_kv_heads: Optional[int] = None, device=None):
+                 num_kv_heads: Optional[int] = None, device=None,
+                 dtype="float32"):
         if num_pages < 1 or page_size < 1:
             raise ValueError("num_pages and page_size must be >= 1")
+        name = str(dtype).replace("torch.", "")
+        if name not in _DTYPES:
+            raise ValueError(f"pool dtype must be one of {sorted(_DTYPES)}, "
+                             f"got {dtype!r}")
         self.device = resolve_device(device)
         self.num_pages = int(num_pages)
         self.page_size = int(page_size)
@@ -84,15 +102,23 @@ class KVCachePool:
         self.head_dim = int(head_dim)
         shape = (self.num_layers, self.num_kv_heads, self.num_pages,
                  self.page_size, self.head_dim)
-        self.k_pages = torch.zeros(shape, dtype=torch.float32,
+        self.k_pages = torch.zeros(shape, dtype=_DTYPES[name],
                                    device=self.device)
-        self.v_pages = torch.zeros(shape, dtype=torch.float32,
+        self.v_pages = torch.zeros(shape, dtype=_DTYPES[name],
                                    device=self.device)
+        self.quantized = name == "int8"
+        if self.quantized:
+            self.k_scales = torch.zeros(self.num_layers, self.num_pages,
+                                        device=self.device)
+            self.v_scales = torch.zeros_like(self.k_scales)
+        else:
+            self.k_scales = self.v_scales = None
         # LIFO free list: recently freed pages are reused first
         self._free: List[int] = list(range(self.num_pages - 1, -1, -1))
         self._tables: Dict[int, SequenceHandle] = {}
+        self._index_memo = None  # write_kv's last (pages, slots, index)
         self._stats = {"page_allocs": 0, "page_frees": 0, "token_appends": 0,
-                       "used_pages_high_water": 0}
+                       "used_pages_high_water": 0, "tokens_truncated": 0}
 
     # -- sizing ---------------------------------------------------------
 
@@ -102,9 +128,32 @@ class KVCachePool:
         return -(-int(tokens) // int(page_size))
 
     def bytes_per_page(self) -> int:
-        """One page's K+V bytes over all layers."""
-        return (2 * self.num_layers * self.page_size * self.num_kv_heads
-                * self.head_dim * self.k_pages.element_size())
+        """One page's K+V bytes over all layers, at the pool's element
+        size; an int8 pool adds its fp32 K and V scale per layer."""
+        nbytes = (2 * self.num_layers * self.page_size * self.num_kv_heads
+                  * self.head_dim * self.k_pages.element_size())
+        if self.quantized:
+            nbytes += 2 * self.num_layers * 4
+        return nbytes
+
+    def layer_scales(self, layer: int):
+        """(k_scales [P], v_scales [P]) of one layer of an int8 pool, the
+        dequantization operands of paged_decode_attention and
+        gather_kv_pages; (None, None) for a float32 pool.  These are
+        views, read by later work in stream order (the JAX pool hands
+        out host copies)."""
+        if not self.quantized:
+            return None, None
+        return self.k_scales[layer], self.v_scales[layer]
+
+    def _clear_scales(self, pages: Sequence[int]) -> None:
+        """Drop the scale entries of pages leaving their owner: a page
+        on the free list carries no scale (check_invariants audits it)."""
+        if self.quantized and len(pages):
+            idx = torch.as_tensor(list(pages), dtype=torch.long,
+                                  device=self.device)
+            self.k_scales[:, idx] = 0.0
+            self.v_scales[:, idx] = 0.0
 
     # -- lifecycle ------------------------------------------------------
 
@@ -121,18 +170,48 @@ class KVCachePool:
         the number of pages released."""
         h = self._tables.pop(seq_id)
         self._free.extend(reversed(h.pages))
+        self._clear_scales(h.pages)
         self._stats["page_frees"] += len(h.pages)
         return len(h.pages)
 
+    def truncate_seq(self, seq_id: int, length: int) -> int:
+        """Shrink a sequence's table to ``length`` tokens: the
+        speculative rollback of rejected draft tokens.  Pages past
+        ceil(length / page_size) leave the table and return to the free
+        list (LIFO, as free_seq returns them), their scales cleared; the
+        kept tail page's surplus slots hold stale content that the
+        length masks and the next append overwrites.  Returns the number
+        of pages freed.  ``length`` must lie in [0, current length]:
+        growth is append_tokens' job."""
+        h = self._tables[seq_id]
+        n = int(length)
+        if n < 0 or n > h.length:
+            raise ValueError(
+                f"cannot truncate sequence {seq_id} from {h.length} to "
+                f"{n} tokens — length must shrink into [0, {h.length}]")
+        if n == h.length:
+            return 0
+        keep = self.pages_needed(n, self.page_size)
+        dropped = h.pages[keep:]
+        h.pages = h.pages[:keep]
+        self._stats["tokens_truncated"] += h.length - n
+        h.length = n
+        self._free.extend(reversed(dropped))
+        self._clear_scales(dropped)
+        self._stats["page_frees"] += len(dropped)
+        return len(dropped)
+
     def scrub_seq_pages(self, seq_id: int) -> int:
-        """Zero a live sequence's page content — the quarantine path calls
-        this before free_seq so non-finite K/V never reaches the next
-        owner of the page.  Returns how many pages were scrubbed."""
+        """Zero a live sequence's page content and scales — the quarantine
+        path calls this before free_seq so non-finite K/V (or a NaN
+        scale) never reaches the next owner of the page.  Returns how
+        many pages were scrubbed."""
         pages = self._tables[seq_id].pages
         if pages:
             idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
             self.k_pages[:, :, idx] = 0
             self.v_pages[:, :, idx] = 0
+            self._clear_scales(pages)
         return len(pages)
 
     def append_token(self, seq_ids: Sequence[int]
@@ -184,13 +263,86 @@ class KVCachePool:
                  v: torch.Tensor) -> None:
         """Write token K/V for ``layer`` in place: k/v [T, H_kv, D] into the
         claimed (page, slot)s (distinct pairs, as append_tokens returns
-        them)."""
-        pg = torch.as_tensor(pages, device=self.device).long()
-        sl = torch.as_tensor(slots, device=self.device).long()
+        them, as host arrays or tensors).  An int8 pool amax-quantizes on
+        the way in."""
+        pg, sl, upages, inv = self._write_index(pages, slots)
+        if self.quantized:
+            self._quantized_write(self.k_pages[layer], self.k_scales[layer],
+                                  pg, sl, upages, inv, k)
+            self._quantized_write(self.v_pages[layer], self.v_scales[layer],
+                                  pg, sl, upages, inv, v)
+            return
         # torch keeps `pages, slots` adjacent after the head slice: the
         # indexed view is [H, T, D] (module docstring)
         self.k_pages[layer][:, pg, sl] = k.transpose(0, 1)
         self.v_pages[layer][:, pg, sl] = v.transpose(0, 1)
+
+    def _write_index(self, pages, slots):
+        """(pages, slots) as long tensors on the pool's device and, for an
+        int8 pool, the touched pages and each row's index among them
+        (np.unique on the host: on the device its size would cost a
+        sync).  A step writes every layer at the same (page, slot)s, so
+        the last call's result is reused while the same values come back:
+        one conversion a step, not one a layer."""
+        host = [a.cpu().numpy() if isinstance(a, torch.Tensor)
+                else np.asarray(a) for a in (pages, slots)]
+        memo = self._index_memo
+        if memo is not None and all(np.array_equal(m, h)
+                                    for m, h in zip(memo[0], host)):
+            return memo[1]
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a, np.int64),
+                                   device=self.device)
+
+        upages = inv = None
+        if self.quantized:
+            upages, inv = np.unique(host[0], return_inverse=True)
+            upages, inv = dev(upages), dev(inv.reshape(-1))
+        out = (dev(host[0]), dev(host[1]), upages, inv)
+        self._index_memo = ([h.copy() for h in host], out)
+        return out
+
+    @staticmethod
+    def _quantized_write(arr, scales, pg, sl, upages, inv, x) -> None:
+        """amax-quantize rows x [T, H_kv, D] into the int8 slots of one
+        layer (arr [H_kv, P, page_size, D], scales [P]), with the JAX
+        pool's arithmetic (``_quantized_write``), on the pool's device
+        without a host sync.  ``upages`` are the touched pages and
+        ``inv`` each row's index among them.  Per touched page the scale
+        is the running max of amax / 127; a scale that GROWS re-quantizes
+        the page's existing content by old / new.  Rounding is half to
+        even and clips to +-127; a NaN row makes its page's scale NaN (the
+        quarantine path scrubs it).  Where the JAX pool re-quantizes only
+        the growing pages, this one multiplies every touched page by its
+        factor, 1 where the scale did not grow, which gives the same int8
+        values (an int8 value times 1 rounds to itself) without a
+        data-dependent branch.  Divisions are tensor by tensor: torch's
+        CUDA division by a Python scalar multiplies by the reciprocal,
+        which can differ in the last bit."""
+        x = x.to(torch.float32)
+        row_amax = x.abs().amax(dim=(1, 2))  # [T]
+        page_amax = row_amax.new_zeros(len(upages)).scatter_reduce(
+            0, inv, row_amax, "amax", include_self=True)
+        # NaN propagates into the scale explicitly (np.maximum.at does)
+        nan_pages = torch.zeros_like(page_amax).index_add_(
+            0, inv, row_amax.isnan().to(torch.float32)) > 0
+        page_amax = page_amax.masked_fill(nan_pages, float("nan"))
+        old = scales[upages]
+        new = torch.maximum(old, page_amax / torch.full_like(page_amax,
+                                                             127.0))
+        requant = (new > old) & (old > 0)
+        factor = torch.where(requant, old / torch.where(requant, new, 1.0),
+                             torch.ones_like(old))
+        block = arr[:, upages].to(torch.float32) * factor[None, :, None, None]
+        arr[:, upages] = block.round().clamp(-127, 127).to(torch.int8)
+        scales[upages] = new
+        row_scale = new[inv]
+        safe = torch.where(row_scale > 0, row_scale,
+                           torch.ones_like(row_scale))
+        q = (x / safe[:, None, None]).round().clamp(-127, 127)
+        arr[:, pg, sl] = torch.nan_to_num(q, nan=0.0).to(
+            torch.int8).transpose(0, 1)
 
     # -- read side ------------------------------------------------------
 
@@ -228,8 +380,12 @@ class KVCachePool:
     def check_invariants(self) -> Dict:
         """Audit page ownership: every page id is either on the free list
         exactly once or in exactly one page table, and every table's
-        length fits its pages with no spare whole page.  Returns a report
-        dict — ``ok`` plus the violating page / sequence ids."""
+        length fits its pages with no spare whole page.  An int8 pool also
+        audits its scales (``scale_errors``): a free page carrying a scale
+        in any layer, or a live written page whose scales are set in some
+        layers and 0 in others (all 0 is a scrubbed page, legitimate).
+        Returns a report dict — ``ok`` plus the violating page / sequence
+        ids."""
         owners = [0] * self.num_pages
         double: List[int] = []
         mismatches: List[int] = []
@@ -254,12 +410,28 @@ class KVCachePool:
         double += [p for p in range(self.num_pages) if owners[p] > 1]
         orphaned = [p for p in range(self.num_pages)
                     if not owners[p] and p not in seen_free]
+        scale_bad: List[int] = []
+        if self.quantized:
+            written = set()
+            for h in self._tables.values():
+                written.update(
+                    h.pages[:self.pages_needed(h.length, self.page_size)])
+            ks, vs = self.k_scales.cpu(), self.v_scales.cpu()
+            some = ((ks != 0).any(0) | (vs != 0).any(0)).tolist()
+            mixed = (((ks != 0).any(0) & (ks == 0).any(0))
+                     | ((vs != 0).any(0) & (vs == 0).any(0))).tolist()
+            for p in range(self.num_pages):
+                if (not owners[p] and some[p]) or (p in written
+                                                   and mixed[p]):
+                    scale_bad.append(p)
         return {
-            "ok": not (orphaned or double or free_errors or mismatches),
+            "ok": not (orphaned or double or free_errors or mismatches
+                       or scale_bad),
             "orphaned_pages": orphaned,
             "double_owned_pages": sorted(set(double)),
             "free_list_errors": free_errors,
             "length_mismatches": mismatches,
+            "scale_errors": scale_bad,
             "used_pages": self.used_pages,
             "live_sequences": len(self._tables),
         }
