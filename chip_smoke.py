@@ -27,6 +27,16 @@ prints no final result line):
    at G x Sq x D = 1280 and 5120 (row tiles), decode and verify over int8
    pages; and a verify block against single-token decode launches cut at
    each row, all within 1e-4 * max(1, max |plain|) on the valid rows.
+   The long-context walks (kernel rows 4d, explicit page starts with the
+   window + sink mask, and 4e, two-level tables) against
+   ``paged_windowed_reference`` on pool-written pages at B 8, page 16,
+   lengths up to 4096: H 8 / D 64 and H_q 8 over H_kv 2 / D 128, fp32 and
+   int8, Sq 1 and 5, unevicted tables with windows, tables compacted by
+   ``evict_interior``, two-level views with bs 1 and 16, windowed rows
+   mixed with PAD_START rows, one window of 1, within the same bound; the
+   starts walk without windows against the flat launch and the two-level
+   walk against the flat starts walk are reported (expected exactly
+   equal).
 3. Serving at the Transformer-base width (vocab 10000, d_model 512,
    8 heads, 6 layers, d_inner 2048, max_length 256; random weights from a
    seed): ``ContinuousBatchingLoop.run`` on 16 requests (prompts of 16-128
@@ -51,6 +61,19 @@ prints no final result line):
    (decode_i8 and verify_i8 launches = steps x n_layer, both > 0, tokens
    as its plain run; the logit distance to the fp32 run reported).  One
    more speculative run under ``torch.profiler``.
+   Then long-context serving at the same width with max_length 4096: 8
+   requests of 4064-token prompts, 32 new tokens each, page 16, in four
+   counted arms: no window (flat tables); window 512 + 16 sink tokens
+   (flat tables with explicit starts); the same through two-level tables
+   of 16-page blocks; and that on an int8 pool with speculate=4 over
+   motif-tiled prompts.  Launches by table walk must be decode_steps x
+   n_layer on the arm's walk and 0 on the others; a windowed arm must
+   evict and walk at most 35 pages (sinks + window + 2) where the
+   unwindowed arm walks 256; pools end clean; windowed tokens must match
+   the same arm through the plain versions and (two requests)
+   full_decode under the same window by the near-tie rule, and the flat
+   and two-level arms each other exactly.  Decode-step wall and device
+   time (torch.profiler) of the first three arms side by side.
 4. Training through the fluid entry points: ``TransformerConfig()`` with
    flash attention on and dropout off, ``MomentumOptimizer(1e-4,
    0.9).minimize``, ``Executor().run(startup)``, then ten
@@ -103,7 +126,10 @@ prints no final result line):
    paged kernel at the speculative serving shape (SDPA over the gathered,
    dequantized K/V); the backward kernels and flash_fwd with lse at the
    training shape; conv_stats at the shapes of kernel rows 5 and 6,
-   bn_epilogue at row 7's.
+   bn_epilogue at row 7's; rows 4d and 4e at the long-context decode
+   shape after eviction (B 8, H 8, D 64, 34 live pages of a 4080-token
+   context; SDPA with a boolean mask over the gathered K/V) and row 4a
+   over the same context unevicted.
 
 Each phase prints one JSON line; the line before the last is the
 ``kernels`` summary and the last line is exactly
@@ -310,10 +336,16 @@ def make_requests(serving, np):
 
 
 def _plain_decoder_cls(serving):
+    """A TransformerDecoder whose attention calls are the plain versions;
+    a TwoLevelTables or a long-context keyword sends the paged calls to
+    paged_windowed_reference."""
+    from torch import is_tensor as torch_is_tensor
+
     from paddle_tpu_torch.kernels.flash_attention import reference_attention
     from paddle_tpu_torch.kernels.paged_attention import (
         paged_decode_reference,
         paged_verify_reference,
+        paged_windowed_reference,
     )
 
     class PlainDecoder(serving.TransformerDecoder):
@@ -324,13 +356,25 @@ def _plain_decoder_cls(serving):
                                        k_lengths=lens)
 
         def attend_decode(self, q, k_pages, v_pages, tables, lengths,
-                          k_scales=None, v_scales=None):
+                          k_scales=None, v_scales=None, **walk):
+            if walk or not torch_is_tensor(tables):
+                return paged_windowed_reference(
+                    q, k_pages, v_pages, tables, lengths, None,
+                    walk.get("page_starts"), walk.get("windows"),
+                    walk.get("sinks"), self.cfg.head_dim ** -0.5, k_scales,
+                    v_scales)
             return paged_decode_reference(q, k_pages, v_pages, tables,
                                           lengths, self.cfg.head_dim ** -0.5,
                                           k_scales, v_scales)
 
         def attend_verify(self, q, k_pages, v_pages, tables, lengths,
-                          q_lengths, k_scales=None, v_scales=None):
+                          q_lengths, k_scales=None, v_scales=None, **walk):
+            if walk or not torch_is_tensor(tables):
+                return paged_windowed_reference(
+                    q, k_pages, v_pages, tables, lengths, q_lengths,
+                    walk.get("page_starts"), walk.get("windows"),
+                    walk.get("sinks"), self.cfg.head_dim ** -0.5, k_scales,
+                    v_scales)
             return paged_verify_reference(q, k_pages, v_pages, tables,
                                           lengths, q_lengths,
                                           self.cfg.head_dim ** -0.5,
@@ -804,6 +848,544 @@ def phase_spec_main_path(torch, np):
           "max_abs_logit_distance_to_fp32_run": _logit_distance(np, res8,
                                                                 res)})
     return {"spec": launches, "int8": launches8}, reqs
+
+
+# -- phase 3c: long-context serving ----------------------------------------
+
+LC_MAX_LENGTH = 4096   # the decoder's position table at long context
+LC_PROMPT = 4064       # tools/serve_bench.py --context-len's prompt shape
+LC_WINDOW, LC_SINKS, LC_BLOCK = 512, 16, 16
+# the widest walk a windowed step may take: the sink pages, the window's
+# pages, one partial page at the window's edge and one the step appends
+LC_TABLE_CAP = (-(-LC_SINKS // PAGE_SIZE) + -(-LC_WINDOW // PAGE_SIZE) + 2)
+# parity cases: (H_q, H_kv, D, pool dtype) at B 8, page 16, Sq 1 and 5; the
+# lengths run to a 4096-token context, the windows mix windowed rows (one
+# with window 1) and rows without a window (PAD_START)
+LC_PARITY_HEADS = [(8, 8, 64, "float32"), (8, 8, 64, "int8"),
+                   (8, 2, 128, "float32"), (8, 2, 128, "int8")]
+LC_PARITY_LENS = [4096, 3001, 1500, 700, 530, 100, 17, 5]
+LC_PARITY_QLENS = [5, 4, 5, 1, 3, 5, 2, 5]
+
+
+def _lc_windows(torch, dev):
+    from paddle_tpu_torch.kernels.paged_attention import PAD_START
+
+    win = torch.tensor([LC_WINDOW, 64, PAD_START, 1, LC_WINDOW, 40, PAD_START,
+                        LC_WINDOW], dtype=torch.int32, device=dev)
+    snk = torch.tensor([LC_SINKS, 0, 0, 0, 32, 16, 0, LC_SINKS],
+                       dtype=torch.int32, device=dev)
+    return win, snk
+
+
+def _lc_pool(torch, serving, rng, Hq, Hkv, D, dtype, dev, windows=None,
+             sinks=None):
+    """One layer of a pool filled through write_kv at LC_PARITY_LENS (in
+    two rounds, the second at twice the magnitude: an int8 page's content
+    re-quantizes).  With windows, each windowed row's interior is evicted
+    before its last SPEC_D + 1 tokens are appended, as the loop evicts
+    before a step's appends.  Returns (pool, ids)."""
+    lengths = LC_PARITY_LENS
+    tail = SPEC_D + 1
+    pages = sum(-(-n // PAGE_SIZE) for n in lengths) + 4
+    pool = serving.KVCachePool(pages, PAGE_SIZE, 1, Hq, D, num_kv_heads=Hkv,
+                               dtype=dtype)
+    ids = list(range(len(lengths)))
+    for s in ids:
+        pool.allocate(s)
+
+    def fill(counts, gain):
+        pg, sl = pool.append_tokens(ids, counts)
+        k = gain * torch.randn(len(pg), Hkv, D, generator=rng, device=dev)
+        v = gain * torch.randn(len(pg), Hkv, D, generator=rng, device=dev)
+        pool.write_kv(0, pg, sl, k, v)
+
+    first = [(n - tail) // 2 for n in lengths]
+    fill(first, 1.0)
+    fill([n - tail - f for n, f in zip(lengths, first)], 2.0)
+    if windows is not None:
+        for s, w, k in zip(ids, windows.tolist(), sinks.tolist()):
+            if w < LC_MAX_LENGTH:  # PAD_START rows keep every page
+                pool.evict_interior(s, w, k)
+    fill([tail] * len(ids), 2.0)
+    return pool, ids
+
+
+def _valid_rows(torch, qlens, sq, dev):
+    """[B, 1, sq, 1] mask of the rows a step reads (t < q_lengths[b])."""
+    if sq == 1:
+        return torch.ones(len(LC_PARITY_LENS), 1, 1, 1, dtype=torch.bool,
+                          device=dev)
+    return (torch.arange(sq, device=dev)[None, :]
+            < qlens[:, None])[:, None, :, None]
+
+
+def _two_level_on(torch, pa, tl, dev):
+    return pa.TwoLevelTables(*(torch.as_tensor(a, device=dev)
+                               for a in (tl.l1, tl.l2, tl.starts)),
+                             tl.block_size)
+
+
+def phase_longctx_parity(torch):
+    """Rows 4d (explicit starts, window + sink mask) and 4e (two-level
+    walk) against paged_windowed_reference on pages the pool's write_kv
+    filled, at B 8, page 16, lengths up to a 4096-token context: H 8 / D
+    64 and H_q 8 over H_kv 2 / D 128, fp32 and int8, Sq 1 and 5; unevicted
+    tables with windows (the mask does the work), tables compacted by
+    evict_interior, two-level views with bs 1 and 16, a batch mixing
+    windowed and PAD_START rows.  Bound: max abs error <= PARITY_TOL *
+    max(1, max |plain|) on the valid rows.  Reported, not bounded: the
+    starts walk without windows against the flat launch, and the two-level
+    walk against the flat starts walk, both expected to be exactly
+    equal."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    dev = torch.device("cuda")
+    rng = torch.Generator(device=dev).manual_seed(SEED + 7)
+    win, snk = _lc_windows(torch, dev)
+    qlens = torch.tensor(LC_PARITY_QLENS, dtype=torch.int32, device=dev)
+    B = len(LC_PARITY_LENS)
+    cases, exact = [], []
+    errs = {"starts": [], "two_level": []}
+
+    def dev_(arrays):
+        return [torch.as_tensor(a, device=dev) for a in arrays]
+
+    for Hq, Hkv, D, dtype in LC_PARITY_HEADS:
+        tag = f"Hq{Hq}_Hkv{Hkv}_D{D}_{dtype}"
+        full, ids = _lc_pool(torch, serving, rng, Hq, Hkv, D, dtype, dev)
+        ev, _ = _lc_pool(torch, serving, rng, Hq, Hkv, D, dtype, dev, win,
+                         snk)
+        for sq in (1, SPEC_D + 1):
+            q = torch.randn(B, Hq, sq, D, generator=rng, device=dev)
+            ql = qlens if sq > 1 else None
+            rows = _valid_rows(torch, qlens, sq, dev)
+
+            def check(walk, name, got, want):
+                torch.cuda.synchronize()
+                err = float(torch.where(rows, got - want, 0.0).abs().max())
+                bound = PARITY_TOL * max(
+                    1.0, float(torch.where(rows, want, 0.0).abs().max()))
+                cases.append({"walk": walk, "case": f"{tag}_sq{sq}_{name}",
+                              "max_abs_err": err, "bound": bound})
+                errs[walk].append(err)
+
+            def same(name, a, b):
+                torch.cuda.synchronize()
+                diff = float(torch.where(rows, a - b, 0.0).abs().max())
+                exact.append({"case": f"{tag}_sq{sq}_{name}",
+                              "max_abs_diff": diff, "exact": diff == 0.0})
+
+            for pool, label in ((full, "unevicted"), (ev, "compacted")):
+                kp, vp = pool.k_pages[0], pool.v_pages[0]
+                ks, vs = pool.layer_scales(0)
+                kw = dict(q_lengths=ql, k_scales=ks, v_scales=vs)
+                t, st, ln = dev_(pool.page_tables_with_starts(ids))
+                got = pa.paged_decode_attention(q, kp, vp, t, ln,
+                                                page_starts=st, windows=win,
+                                                sinks=snk, **kw)
+                check("starts", f"{label}_windowed", got,
+                      pa.paged_windowed_reference(q, kp, vp, t, ln, ql, st,
+                                                  win, snk, D ** -0.5, ks,
+                                                  vs))
+                if pool is full:
+                    same("starts_walk_vs_flat_launch",
+                         pa.paged_decode_attention(q, kp, vp, t, ln,
+                                                   page_starts=st, **kw),
+                         pa.paged_decode_attention(q, kp, vp, t, ln, **kw))
+                    continue
+                for bs in (1, LC_BLOCK):
+                    tl, ln2 = pool.two_level_tables(ids, bs)
+                    tl, ln2 = _two_level_on(torch, pa, tl, dev), dev_([ln2])[0]
+                    got2 = pa.paged_decode_attention(q, kp, vp, tl, ln2,
+                                                     windows=win, sinks=snk,
+                                                     **kw)
+                    check("two_level", f"compacted_windowed_bs{bs}", got2,
+                          pa.paged_windowed_reference(q, kp, vp, tl, ln2, ql,
+                                                      None, win, snk,
+                                                      D ** -0.5, ks, vs))
+                    same(f"two_level_bs{bs}_vs_flat_starts_walk", got2, got)
+        del full, ev
+    emit({"phase": "longctx_parity", "tolerance": "max abs err <= "
+          f"{PARITY_TOL} * max(1, max |plain|), valid rows",
+          "lengths": LC_PARITY_LENS, "q_lengths_at_sq5": LC_PARITY_QLENS,
+          "windows": win.tolist(), "sinks": snk.tolist(),
+          "cases": cases, "exact_identities": exact})
+    bad = [c for c in cases if not c["max_abs_err"] <= c["bound"]]
+    if bad:
+        raise AssertionError(f"long-context walk parity beyond its bound: "
+                             f"{bad}")
+    return {k: max(v) for k, v in errs.items()}
+
+
+def make_longctx_requests(serving, np, window=None, motif=False):
+    """MAX_BATCH requests of exactly LC_PROMPT tokens and MAX_NEW new
+    tokens each (tools/serve_bench.py --context-len's shape): random
+    prompts, or one random motif of 6 tokens tiled to LC_PROMPT (the
+    --speculate traffic)."""
+    rng = np.random.RandomState(SEED + 3)
+    if motif:
+        m = rng.randint(1, CFG["vocab_size"], size=6).tolist()
+        prompts = [(m * -(-LC_PROMPT // 6))[:LC_PROMPT]] * MAX_BATCH
+    else:
+        prompts = [rng.randint(1, CFG["vocab_size"], size=LC_PROMPT).tolist()
+                   for _ in range(MAX_BATCH)]
+    return [serving.DecodeRequest(
+        prompt=p, max_new_tokens=MAX_NEW, window=window,
+        sinks=LC_SINKS if window else 0) for p in prompts]
+
+
+def _lc_new_pool(serving, cfg, dtype="float32"):
+    per_seq = -(-(LC_PROMPT + MAX_NEW) // PAGE_SIZE)
+    return serving.KVCachePool(
+        num_pages=MAX_BATCH * per_seq + 8, page_size=PAGE_SIZE,
+        num_layers=cfg.n_layer, num_heads=cfg.n_head, head_dim=cfg.head_dim,
+        num_kv_heads=cfg.num_kv_heads, dtype=dtype)
+
+
+def _lc_counted(torch, serving, model, cfg, reqs, dtype="float32", **kw):
+    """One loop run with every counter zeroed just before it and read just
+    after.  Returns (loop, pool, results, wall_s, launches)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    pool = _lc_new_pool(serving, cfg, dtype)
+    loop = serving.ContinuousBatchingLoop(model, cfg, pool,
+                                          max_batch=MAX_BATCH, **kw)
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    pa.reset_launches()
+    t0 = time.perf_counter()
+    results = loop.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    p = pa.paged_decode_attention
+    launches = {"flash_fwd": fa.flash_attention.launches,
+                "by_variant": dict(p.launches_by_variant),
+                "by_table": dict(p.launches_by_table),
+                "windowed": p.windowed_launches}
+    return loop, pool, results, wall, launches
+
+
+def _lc_gate(np, cfg, loop, pool, results, launches, name, walk, windowed,
+             dtype="float32"):
+    """Launch counts by walk = decode steps x n_layer on the arm's walk and
+    0 on the others (windowed the same when the arm is windowed), by
+    variant verify = spec steps x n_layer and decode the rest; eviction
+    and the table walk's width; the pool clean."""
+    from paddle_tpu_torch.kernels.paged_attention import TABLE_WALKS, VARIANTS
+
+    n = loop.decode_steps * cfg.n_layer
+    sfx = "_i8" if dtype == "int8" else "_f32"
+    want = {"flash_fwd": loop.prefill_steps * cfg.n_layer,
+            "by_table": {w: n if w == walk else 0 for w in TABLE_WALKS},
+            "by_variant": {v: 0 for v in VARIANTS},
+            "windowed": n if windowed else 0}
+    want["by_variant"]["verify" + sfx] = loop.spec_steps * cfg.n_layer
+    want["by_variant"]["decode" + sfx] = (loop.decode_steps
+                                          - loop.spec_steps) * cfg.n_layer
+    if launches != want or not n:
+        raise AssertionError(f"{name}: launches {launches}, want {want}")
+    if windowed and not (loop.pages_evicted > 0
+                         and loop.max_decode_table_pages <= LC_TABLE_CAP):
+        raise AssertionError(
+            f"{name}: pages_evicted {loop.pages_evicted}, widest walk "
+            f"{loop.max_decode_table_pages} pages (cap {LC_TABLE_CAP})")
+    if not windowed and (loop.pages_evicted
+                         or loop.max_decode_table_pages <= LC_TABLE_CAP):
+        raise AssertionError(f"{name}: an unwindowed run evicted or walked "
+                             f"{loop.max_decode_table_pages} pages")
+    _check_run(np, cfg, loop, pool, results, name)
+
+
+def _lc_oracle(serving, params, cfg, reqs):
+    """full_decode of the first two requests, windowed as they are."""
+    out = []
+    for r in reqs[:2]:
+        kw = ({} if r.window is None else
+              dict(window=r.window, sinks=r.sinks, page_size=PAGE_SIZE))
+        toks, rows = serving.full_decode(params, cfg, r.prompt,
+                                         r.max_new_tokens, **kw)
+        out.append(serving.GeneratedSequence(seq_id=-1, prompt=r.prompt,
+                                             tokens=toks, logits=rows))
+    return out
+
+
+def _lc_summary(loop, wall, pool):
+    return dict(_spec_summary(loop, wall, MAX_BATCH * MAX_NEW),
+                pages_evicted=loop.pages_evicted,
+                max_decode_table_pages=loop.max_decode_table_pages,
+                used_pages_high_water=pool.stats()["used_pages_high_water"],
+                prefill_step_ms_median=1e3 * statistics.median(
+                    loop.prefill_step_s))
+
+
+def _lc_step_times(torch, serving, model, cfg, reqs, table_block=None,
+                   steps=8):
+    """Decode-step times at the long-context state, outside the loop: one
+    prefill of the requests, then 2 * steps decode steps as the loop makes
+    them (eviction first for windowed requests).  Wall: the host clock of
+    the first `steps`, each ending in a synchronize.  Device: the device's
+    own busy time (kernels, copies) per step of the next `steps` under
+    torch.profiler, and the paged kernel's share of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pool = _lc_new_pool(serving, cfg)
+    ids = list(range(len(reqs)))
+    for s in ids:
+        pool.allocate(s)
+    tokens = model.prefill_step(pool, ids, [r.prompt for r in reqs]).argmax(
+        -1).tolist()
+    pos = [len(r.prompt) for r in reqs]
+    windowed = reqs[0].window is not None
+
+    def step():
+        kw = {"table_block": table_block} if table_block else {}
+        if windowed:
+            for s, r in zip(ids, reqs):
+                pool.evict_interior(s, r.window, r.sinks)
+            kw.update(windows=[r.window for r in reqs],
+                      sinks=[r.sinks for r in reqs])
+        model.decode_step(pool, ids, tokens, pos, **kw)
+        for i in ids:
+            pos[i] += 1
+
+    walls = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    by_name = {e.key: e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    busy_us = sum(by_name.values())
+    if not busy_us:
+        raise AssertionError("the profiler saw no device time")
+    paged_us = sum(us for k, us in by_name.items() if "paged_attn" in k)
+    return {"decode_step_wall_ms_median": 1e3 * statistics.median(walls),
+            "decode_step_device_ms": busy_us / 1e3 / steps,
+            "paged_kernel_device_ms_per_step": paged_us / 1e3 / steps,
+            "table_pages": pool.max_live_pages()}
+
+
+def phase_longctx(torch, np):
+    """Long-context serving at the Transformer-base width with max_length
+    4096: MAX_BATCH requests of LC_PROMPT-token prompts, MAX_NEW new tokens
+    each, an fp32 pool of page 16.  Four counted arms: (1) no window, flat
+    tables; (2) window 512 + 16 sink tokens, flat tables with explicit
+    starts; (3) the same through two-level tables of 16-page blocks; (4)
+    the same on an int8 pool with speculate=4, on motif-tiled prompts.
+    Each is gated by _lc_gate; arms 2-4 also by their tokens against the
+    same arm through the plain versions on the card and (two requests)
+    against full_decode under the same window, by the near-tie rule, and
+    arms 2 and 3 against each other (identical tokens).  Then decode-step
+    wall and device time of arms 1-3 side by side."""
+    from paddle_tpu_torch import serving
+
+    cfg = serving.DecodeConfig(**dict(CFG, max_length=LC_MAX_LENGTH))
+    params = serving.init_decode_params(cfg, seed=SEED)
+    model = serving.TransformerDecoder(cfg).load_jax_params(params)
+    plain = _plain_decoder_cls(serving)(cfg).load_jax_params(params)
+    reqs = make_longctx_requests(serving, np)
+    wreqs = make_longctx_requests(serving, np, window=LC_WINDOW)
+    mreqs = make_longctx_requests(serving, np, window=LC_WINDOW, motif=True)
+    out, launches = {}, {}
+
+    def plain_run(rq, dtype="float32", **kw):
+        return serving.ContinuousBatchingLoop(
+            plain, cfg, _lc_new_pool(serving, cfg, dtype),
+            max_batch=MAX_BATCH, **kw).run(rq)
+
+    def compare(name, got, want):
+        diff, ties = _compare_tokens(got, want)
+        out[name] = {"max_abs_logit_diff": diff, "near_ties": ties}
+
+    loop, pool, res, wall, launches["no_window"] = _lc_counted(
+        torch, serving, model, cfg, reqs)
+    _lc_gate(np, cfg, loop, pool, res, launches["no_window"],
+             "longctx_no_window", "flat", False)
+    out["no_window"] = _lc_summary(loop, wall, pool)
+    compare("no_window_vs_full_decode", res[:2],
+            _lc_oracle(serving, params, cfg, reqs))
+    del pool
+
+    w_oracle = _lc_oracle(serving, params, cfg, wreqs)
+    res_w = {}
+    for arm, walk, kw in (("windowed_flat", "starts", {}),
+                          ("windowed_two_level", "two_level",
+                           {"table_block": LC_BLOCK})):
+        loop, pool, res, wall, launches[arm] = _lc_counted(
+            torch, serving, model, cfg, wreqs, **kw)
+        _lc_gate(np, cfg, loop, pool, res, launches[arm], arm, walk, True)
+        out[arm] = _lc_summary(loop, wall, pool)
+        compare(arm + "_vs_plain", res, plain_run(wreqs, **kw))
+        compare(arm + "_vs_full_decode", res[:2], w_oracle)
+        res_w[arm] = res
+        del pool
+    flat, two = res_w["windowed_flat"], res_w["windowed_two_level"]
+    if [r.tokens for r in flat] != [r.tokens for r in two]:
+        raise AssertionError("windowed arms: flat and two-level tokens differ")
+    compare("two_level_vs_flat", two, flat)
+
+    arm = "windowed_two_level_int8_spec"
+    kw = dict(table_block=LC_BLOCK, speculate=SPEC_D)
+    loop, pool, res, wall, launches[arm] = _lc_counted(
+        torch, serving, model, cfg, mreqs, dtype="int8", **kw)
+    _lc_gate(np, cfg, loop, pool, res, launches[arm], arm, "two_level", True,
+             dtype="int8")
+    if not loop.drafted_tokens:
+        raise AssertionError(f"{arm}: nothing was drafted")
+    out[arm] = _lc_summary(loop, wall, pool)
+    del pool
+    compare(arm + "_vs_plain", res, plain_run(mreqs, "int8", **kw))
+    compare(arm + "_vs_full_decode", res[:2],
+            _lc_oracle(serving, params, cfg, mreqs))
+
+    steps = {"no_window": _lc_step_times(torch, serving, model, cfg, reqs),
+             "windowed_flat": _lc_step_times(torch, serving, model, cfg,
+                                             wreqs),
+             "windowed_two_level": _lc_step_times(
+                 torch, serving, model, cfg, wreqs, table_block=LC_BLOCK)}
+    emit({"phase": "longctx", "config": dict(CFG, max_length=LC_MAX_LENGTH),
+          "max_batch": MAX_BATCH, "page_size": PAGE_SIZE,
+          "prompt_len": LC_PROMPT, "max_new_tokens": MAX_NEW,
+          "window": LC_WINDOW, "sinks": LC_SINKS, "table_block": LC_BLOCK,
+          "table_pages_cap": LC_TABLE_CAP, "launches": launches,
+          "arms": out, "decode_step_times": steps})
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _lc_visible(torch, pa, tables, starts, lengths, windows, sinks, dev):
+    """[B, 1, 1, S] bool: the keys a decode query (at lengths - 1) sees
+    through a flat table and its starts, by the kernel's rule."""
+    ps = PAGE_SIZE
+    st = torch.as_tensor(starts, device=dev).long()
+    ln = torch.as_tensor(lengths, device=dev).long()
+    pstart = st.repeat_interleave(ps, dim=1)
+    kpos = pstart + torch.arange(ps, device=dev).repeat(st.shape[1])[None]
+    qpos = (ln - 1)[:, None]
+    vis = (kpos <= qpos) & (kpos < ln[:, None]) & (pstart != pa.PAD_START)
+    if windows is not None:
+        w = torch.as_tensor(windows, device=dev).long()[:, None]
+        k = torch.as_tensor(sinks, device=dev).long()[:, None]
+        vis &= (pstart < k) | (pstart + ps > qpos + 1 - w)
+    return vis[:, None, None, :]
+
+
+def phase_longctx_timing(torch, np, errs, launches):
+    """Rows 4d and 4e at the long-context decode shape: B 8, H = H_kv 8,
+    D 64, page 16, every sequence at LC_PROMPT + MAX_NEW / 2 tokens,
+    evicted at window 512 + 16 sinks before its last token was appended
+    (34 live pages), fp32; and row 4a on the same pages before eviction
+    (a 4096-token-scale context walked whole).  Bound: the K/V rows the
+    query sees read once, plus q, o and the table operands, over 3.35
+    TB/s, against 4 * D flops per visible key per head over 67 TFLOP/s.
+    Library: SDPA over the K/V gathered through the table, with a boolean
+    mask of the visible keys (gather not timed)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    dev = torch.device("cuda")
+    rng = torch.Generator(device=dev).manual_seed(SEED + 8)
+    H, D = CFG["n_head"], CFG["d_model"] // CFG["n_head"]
+    scale = D ** -0.5
+    B, L = MAX_BATCH, LC_PROMPT + MAX_NEW // 2
+    pool = serving.KVCachePool(B * -(-L // PAGE_SIZE) + 4, PAGE_SIZE, 1, H, D)
+    ids = list(range(B))
+    for s in ids:
+        pool.allocate(s)
+
+    def fill(n):
+        pg, sl = pool.append_tokens(ids, [n] * B)
+        pool.write_kv(0, pg, sl,
+                      torch.randn(len(pg), H, D, generator=rng, device=dev),
+                      torch.randn(len(pg), H, D, generator=rng, device=dev))
+
+    fill(L)
+    kp, vp = pool.k_pages[0], pool.v_pages[0]
+    q = torch.randn(B, H, 1, D, generator=rng, device=dev)
+    win = torch.full((B,), LC_WINDOW, dtype=torch.int32, device=dev)
+    snk = torch.full((B,), LC_SINKS, dtype=torch.int32, device=dev)
+
+    def row(name, replaces, n_launch, err, kernel, plain, t, st, ln, w, k,
+            table_bytes, shape):
+        vis = _lc_visible(torch, pa, t, st, ln, w, k, dev)
+        n_vis = int(vis.sum())
+        kg = pa.gather_kv_pages(kp, t)
+        vg = pa.gather_kv_pages(vp, t)
+        nbytes = 4 * (2 * H * D * n_vis + 2 * B * H * D) + table_bytes
+        return _row(name, "paddle_tpu_torch/kernels/csrc/paged_decode.cu",
+                    replaces, n_launch, err, device_ms(torch, kernel),
+                    device_ms(torch, plain), nbytes, 4 * D * H * n_vis,
+                    device_ms(torch, lambda: F.scaled_dot_product_attention(
+                        q, kg, vg, attn_mask=vis, scale=scale)),
+                    dict(shape, visible_keys=n_vis))
+
+    t, st, ln = (torch.as_tensor(a, device=dev)
+                 for a in pool.page_tables_with_starts(ids))
+    flat = row("paged_decode", "paddle_tpu/kernels/paged_attention.py:645",
+               launches["no_window"]["by_variant"]["decode_f32"], None,
+               lambda: pa.paged_decode_attention(q, kp, vp, t, ln),
+               lambda: pa.paged_decode_reference(q, kp, vp, t, ln, scale),
+               t, st, ln, None, None, 4 * (t.numel() + B),
+               {"B": B, "H_q": H, "H_kv": H, "D": D, "page_size": PAGE_SIZE,
+                "lengths": [L] * B, "table_pages": t.shape[1]})
+    # the loop's order: evict at the length before the fed token
+    for s in ids:
+        pool.truncate_seq(s, L - 1)
+        pool.evict_interior(s, LC_WINDOW, LC_SINKS)
+    fill(1)
+    t, st, ln = (torch.as_tensor(a, device=dev)
+                 for a in pool.page_tables_with_starts(ids))
+    shape = {"B": B, "H_q": H, "H_kv": H, "D": D, "page_size": PAGE_SIZE,
+             "lengths": [L] * B, "window": LC_WINDOW, "sinks": LC_SINKS,
+             "live_pages": t.shape[1]}
+    rows = [row(
+        "paged_starts_window",
+        "paddle_tpu/kernels/paged_attention.py:645",
+        launches["windowed_flat"]["by_table"]["starts"], errs["starts"],
+        lambda: pa.paged_decode_attention(q, kp, vp, t, ln, page_starts=st,
+                                          windows=win, sinks=snk),
+        lambda: pa.paged_windowed_reference(q, kp, vp, t, ln, None, st, win,
+                                            snk, scale),
+        t, st, ln, win, snk, 4 * (2 * t.numel() + 3 * B), shape)]
+    tl, _ = pool.two_level_tables(ids, LC_BLOCK)
+    tl = _two_level_on(torch, pa, tl, dev)
+    rows.append(row(
+        "paged_two_level",
+        "paddle_tpu/kernels/paged_attention.py:645",
+        sum(launches[a]["by_table"]["two_level"]
+            for a in ("windowed_two_level", "windowed_two_level_int8_spec")),
+        errs["two_level"],
+        lambda: pa.paged_decode_attention(q, kp, vp, tl, ln, windows=win,
+                                          sinks=snk),
+        lambda: pa.paged_windowed_reference(q, kp, vp, tl, ln, None, None,
+                                            win, snk, scale),
+        t, st, ln, win, snk,
+        4 * (tl.l1.numel() + tl.l2.numel() + tl.starts.numel() + 3 * B),
+        dict(shape, block_size=LC_BLOCK)))
+    emit({"phase": "longctx_timing", "method": "CUDA events, median of 30 "
+          "after 5 warm-up calls, queued behind torch.cuda._sleep",
+          "library_call": "SDPA over K/V already gathered through the "
+          "table, boolean mask of the visible keys (gather not timed)",
+          "rows": [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms", "shape")}
+                   for r in [flat] + rows]})
+    for r in rows:
+        r.pop("shape")
+    flat.pop("shape")
+    return rows, {k: flat[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}
 
 
 # -- phase 4: training -----------------------------------------------------
@@ -1812,16 +2394,20 @@ def main() -> int:
     phase_build()
     parity_err = phase_parity(torch)
     spec_err = phase_spec_parity(torch)
+    lc_err = phase_longctx_parity(torch)
     bwd_err = phase_bwd_parity(torch)
     conv_err = phase_conv_parity(torch, fluid)
     serve_launches, reqs = phase_main_path(torch, np)
     spec_launches, spec_reqs = phase_spec_main_path(torch, np)
+    lc_launches = phase_longctx(torch, np)
     train_launches, batch, cfg = phase_training(torch, np)
     torch.cuda.empty_cache()
     conv_launches, by_shape, trace = phase_resnet(torch, np, fluid)
     kernels = phase_timing(torch, np, reqs, parity_err, serve_launches)
     kernels += phase_spec_timing(torch, np, spec_reqs, spec_err,
                                  spec_launches)
+    lc_rows, lc_flat = phase_longctx_timing(torch, np, lc_err, lc_launches)
+    kernels += lc_rows
     kernels += phase_train_timing(torch, bwd_err, train_launches, cfg, batch)
     kernels += phase_conv_timing(torch, conv_err, conv_launches, by_shape,
                                  trace)
@@ -1830,15 +2416,20 @@ def main() -> int:
     by_path = {"serving": serve_launches["flash_fwd"],
                "speculative_serving": spec_launches["spec"]["flash_fwd"],
                "int8_serving": spec_launches["int8"]["flash_fwd"],
+               "long_context_serving": sum(
+                   a["flash_fwd"] for a in lc_launches.values()),
                "training": train_launches["flash_fwd"]}
     kernels[0]["launches"] = sum(by_path.values())
     kernels[0]["launches_by_path"] = by_path
     kernels[0]["max_abs_err"] = max(parity_err["flash_fwd"],
                                     bwd_err["flash_fwd"])
     by_path = {"serving": serve_launches["paged_decode"],
-               "speculative_serving": spec_launches["spec"]["decode_f32"]}
+               "speculative_serving": spec_launches["spec"]["decode_f32"],
+               "long_context_no_window":
+                   lc_launches["no_window"]["by_variant"]["decode_f32"]}
     kernels[1]["launches"] = sum(by_path.values())
     kernels[1]["launches_by_path"] = by_path
+    kernels[1]["at_long_context"] = lc_flat
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,8 @@ else raises :class:`GroupedHeadsError`.
   their own page.  An int8 pool without scales raises.
 
 Four kernel variants, one CUDA kernel (``csrc/paged_decode.cu``):
-``decode_f32``, ``verify_f32``, ``decode_i8`` and ``verify_i8``.
+``decode_f32``, ``verify_f32``, ``decode_i8`` and ``verify_i8``, each
+over one of three table walks (below).
 
 - On a CUDA tensor it launches the variant or raises.  There is no
   envelope and no fallback: a geometry the kernel does not take is an
@@ -35,28 +36,56 @@ Four kernel variants, one CUDA kernel (``csrc/paged_decode.cu``):
   the gathered view, the JAX ``_reference_verify``); an int8 pool
   dequantizes in the gather.
 
-``paged_decode_attention.launches`` counts kernel launches, and
-``paged_decode_attention.launches_by_variant`` splits them by variant.
-Still to be ported from the JAX kernel: explicit page starts with the
-window + sink mask, and two-level tables.
+Long-context surfaces (the JAX package's window + sink decode):
+
+- ``page_starts`` [B, max_pages] int32 (:data:`PAD_START` past a row's
+  pages) gives the absolute position of each table entry's slot 0.  An
+  evicted sequence's table is compacted, so slot ``s`` of its table sits
+  at ``page_starts[b, s // page_size] + s % page_size``, not at ``s``.
+- ``page_tables`` may be a :class:`TwoLevelTables` (an L1 directory over
+  L2 blocks of page ids and starts); it carries its own starts, and
+  ``page_starts`` beside it raises.
+- ``windows`` / ``sinks`` [B] int32 (sinks needs windows) add the
+  page-granular visibility rule: key page start ``st`` is visible to the
+  query at position ``qp`` iff ``st < sinks[b]`` or ``st + page_size >
+  qp + 1 - windows[b]``.  A row with no window passes ``windows[b] =
+  PAD_START``.
+
+With any of these the kernel walks table slots with explicit starts
+(``csrc/paged_decode.cu``, the ``starts`` and ``two_level`` walks; the
+plain version is :func:`paged_windowed_reference`).
+
+``paged_decode_attention.launches`` counts kernel launches;
+``launches_by_variant`` splits them by variant (Sq and pool dtype),
+``launches_by_table`` by walk (``flat``, ``starts``, ``two_level``), and
+``windowed_launches`` counts the launches that carried windows.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
+from typing import Tuple
 
 import torch
 
 from . import _build
 from .flash_attention import NEG_INF, reference_attention
 
-__all__ = ["GroupedHeadsError", "VARIANTS", "gather_kv_pages",
-           "paged_decode_attention", "paged_decode_reference",
-           "paged_verify_reference", "repeat_kv", "reset_launches"]
+__all__ = ["GroupedHeadsError", "PAD_START", "TABLE_WALKS", "TwoLevelTables",
+           "VARIANTS", "gather_kv_pages", "paged_decode_attention",
+           "paged_decode_reference", "paged_verify_reference",
+           "paged_windowed_reference", "repeat_kv", "reset_launches"]
 
 VARIANTS = ("decode_f32", "verify_f32", "decode_i8", "verify_i8")
+TABLE_WALKS = ("flat", "starts", "two_level")
+# the start of a padding slot in an explicit-starts operand (a flat
+# page_starts row past the sequence's pages, or a two-level pad block):
+# far past any length, so the position mask hides the page-0 read behind
+# it.  PAD_START + page_size and qp + 1 - PAD_START both fit in int32.
+PAD_START = 0x3FFFFFFF
 _HEAD_DIMS = (64, 128)
 _MAX_GRID_Y = 65535
 
@@ -64,6 +93,41 @@ _MAX_GRID_Y = 65535
 class GroupedHeadsError(ValueError):
     """H_q is not a multiple of H_kv: no query-head group maps cleanly
     onto a KV head.  A config error, raised typed."""
+
+
+@dataclasses.dataclass(frozen=True)
+class TwoLevelTables:
+    """Two-level page-table view of a batch (the JAX ``TwoLevelTables``):
+
+    - ``l1`` [B, n_l1] int32: entry j of row b names the L2 block that
+      holds that sequence's table entries [j * bs, (j + 1) * bs);
+    - ``l2`` [n_blocks, bs] int32: page ids (page 0 in padding slots);
+    - ``starts`` [n_blocks, bs] int32: the absolute position of each
+      page's slot 0 (:data:`PAD_START` in padding slots);
+    - ``block_size``: bs.
+
+    Page entry p of sequence b is ``l2[l1[b, p // bs], p % bs]``.  The
+    arrays may be numpy arrays or tensors; ``KVCachePool.two_level_tables``
+    builds them on the host."""
+
+    l1: object
+    l2: object
+    starts: object
+    block_size: int
+
+    @property
+    def max_pages(self) -> int:
+        return self.l1.shape[1] * self.block_size
+
+    def flatten(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(tables [B, max_pages], starts [B, max_pages]) int32 tensors:
+        the flat view the plain version gathers through."""
+        l1 = torch.as_tensor(self.l1).to(torch.long)
+        l2 = torch.as_tensor(self.l2, device=l1.device).to(torch.int32)
+        st = torch.as_tensor(self.starts, device=l1.device).to(torch.int32)
+        b, n_l1 = l1.shape
+        return (l2[l1].reshape(b, n_l1 * self.block_size),
+                st[l1].reshape(b, n_l1 * self.block_size))
 
 
 def _group_size(num_q_heads: int, num_kv_heads: int) -> int:
@@ -165,13 +229,78 @@ def paged_verify_reference(q, k_pages, v_pages, page_tables, lengths,
     return torch.matmul(weights, v)
 
 
+def paged_windowed_reference(q, k_pages, v_pages, page_tables, lengths,
+                             q_lengths=None, page_starts=None, windows=None,
+                             sinks=None, scale=None, k_scales=None,
+                             v_scales=None) -> torch.Tensor:
+    """Plain version of the explicit-starts, windowed and two-level walks
+    (JAX ``_reference_windowed``): a dense masked softmax over the
+    gathered view.  ``page_tables`` is flat [B, max_pages] or a
+    :class:`TwoLevelTables` (flattened first); key positions come from
+    the per-page starts (None: ``p * page_size``).  Key j of page start
+    ``st_j`` and position ``pos_j`` is visible to query row t (position
+    ``qp_t = lengths[b] - q_lengths[b] + t``) iff ``pos_j <= qp_t``,
+    ``pos_j < lengths[b]`` and (``st_j < sinks[b]`` or ``st_j + page_size
+    > qp_t + 1 - windows[b]``); no windows means no window term.  Keys at
+    ``pos >= lengths[b]`` and in ``PAD_START`` slots are zeroed before the
+    product, so that 0 * NaN from a padding page never leaks, and a row
+    that sees no key returns zeros, as the kernel does.  q [B, H_q, Sq,
+    D] -> [B, H_q, Sq, D]."""
+    B, Hq, Sq, D = q.shape
+    G = _group_size(Hq, k_pages.shape[0])
+    ps = k_pages.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    if isinstance(page_tables, TwoLevelTables):
+        if page_starts is not None:
+            raise ValueError("a TwoLevelTables walk carries its own starts")
+        page_tables, page_starts = page_tables.flatten()
+    tables = torch.as_tensor(page_tables, device=dev).to(torch.long)
+    n_pages = tables.shape[1]
+    st = (torch.arange(n_pages, device=dev)[None, :].expand(B, n_pages)
+          * ps if page_starts is None
+          else torch.as_tensor(page_starts, device=dev).to(torch.long))
+    ln = torch.as_tensor(lengths, device=dev).to(torch.long).reshape(-1)
+    ql = (torch.full((B,), Sq, device=dev) if q_lengths is None
+          else torch.as_tensor(q_lengths, device=dev).to(torch.long)
+          .reshape(-1))
+    pstart = st.repeat_interleave(ps, dim=1)  # [B, S]
+    kpos = pstart + torch.arange(ps, device=dev).repeat(n_pages)[None, :]
+    dead = ((kpos >= ln[:, None]) | (pstart == PAD_START))[:, None, :, None]
+    k = gather_kv_pages(k_pages, tables, k_scales).masked_fill(dead, 0.0)
+    v = gather_kv_pages(v_pages, tables, v_scales).masked_fill(dead, 0.0)
+    k, v = repeat_kv(k, v, G)
+    qpos = (ln - ql)[:, None] + torch.arange(Sq, device=dev)[None, :]
+    kp, sp, qp = kpos[:, None, :], pstart[:, None, :], qpos[:, :, None]
+    vis = (kp <= qp) & (kp < ln[:, None, None])  # [B, Sq, S]
+    if windows is not None:
+        win = torch.as_tensor(windows, device=dev).to(torch.long).reshape(-1)
+        snk = (torch.zeros_like(win) if sinks is None
+               else torch.as_tensor(sinks, device=dev).to(torch.long)
+               .reshape(-1))
+        vis = vis & ((sp < snk[:, None, None])
+                     | (sp + ps > qp + 1 - win[:, None, None]))
+    scores = torch.matmul(q, k.transpose(-1, -2)) * scale
+    scores = scores.masked_fill(~vis[:, None], NEG_INF)
+    weights = torch.softmax(scores, dim=-1).masked_fill(
+        ~vis.any(-1)[:, None, :, None], 0.0)
+    return torch.matmul(weights, v)
+
+
 @functools.lru_cache(maxsize=None)
-def _entry(variant: str):
-    fn = getattr(_build.library("paged_decode"), "paged_" + variant)
-    if variant == "decode_f32":
+def _entry(name: str):
+    fn = getattr(_build.library("paged_decode"), "paged_" + name)
+    if name == "decode_f32":
         # q, k, v, tables, lengths, o; B, H_kv, G, P, page_size,
         # max_pages, D; scale; stream
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_void_p])
+    elif name.startswith("walk"):
+        # q, k, v, k_scales, v_scales, tables, l2, starts, lengths,
+        # q_lengths, windows, sinks, o; B, H_kv, G, Sq, P, page_size,
+        # max_pages, block_size, n_blocks, D; scale; stream
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_void_p])
     else:
         # q, k, v, k_scales, v_scales, tables, lengths, q_lengths, o;
@@ -233,13 +362,58 @@ def _int32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, device=device).to(torch.int32).contiguous()
 
 
+def _walk_operands(page_tables, page_starts, windows, sinks, B, page_size,
+                   device):
+    """The explicit-starts walk's int32 operands on the card: (tables or
+    L1 [B, n], L2 [n_blocks, bs] or None, starts [B, max_pages] or
+    [n_blocks, bs], block_size (0: flat), windows [B] or None, sinks [B]
+    or None).  A flat table with windows but no starts gets its implicit
+    starts ``p * page_size``, so the walk is the same one."""
+    if isinstance(page_tables, TwoLevelTables):
+        bs = int(page_tables.block_size)
+        tables = _int32(page_tables.l1, device)
+        l2 = _int32(page_tables.l2, device)
+        starts = _int32(page_tables.starts, device)
+        if bs < 1 or l2.dim() != 2 or l2.shape[1] != bs \
+                or starts.shape != l2.shape or l2.shape[0] < 1:
+            raise ValueError(
+                f"two-level tables need l2 and starts [n_blocks >= 1, "
+                f"bs={bs}], got {tuple(l2.shape)} and {tuple(starts.shape)}")
+    else:
+        bs, l2 = 0, None
+        tables = _int32(page_tables, device)
+        starts = (_int32(page_starts, device) if page_starts is not None
+                  else (torch.arange(tables.shape[1], dtype=torch.int32,
+                                     device=device) * page_size)
+                  .expand(tables.shape).contiguous())
+        if starts.shape != tables.shape:
+            raise ValueError(f"page_starts must be shaped like the table "
+                             f"{tuple(tables.shape)}, got "
+                             f"{tuple(starts.shape)}")
+    if tables.dim() != 2 or tables.shape[0] != B:
+        raise ValueError(f"tables must be [B={B}, n], got "
+                         f"{tuple(tables.shape)}")
+    win = snk = None
+    if windows is not None:
+        win = _int32(windows, device).reshape(-1)
+        snk = (torch.zeros(B, dtype=torch.int32, device=device)
+               if sinks is None else _int32(sinks, device).reshape(-1))
+        if win.shape != (B,) or snk.shape != (B,):
+            raise ValueError(f"windows and sinks must be [B={B}], got "
+                             f"{tuple(win.shape)} and {tuple(snk.shape)}")
+    return tables, l2, starts, bs, win, snk
+
+
 def paged_decode_attention(q, k_pages, v_pages, page_tables, lengths,
                            scale=None, q_lengths=None, k_scales=None,
-                           v_scales=None) -> torch.Tensor:
+                           v_scales=None, page_starts=None, windows=None,
+                           sinks=None) -> torch.Tensor:
     """q [B, H_q, Sq, D] fp32; k_pages/v_pages [H_kv, P, page_size, D]
-    fp32 or int8; page_tables [B, max_pages] int32; lengths [B] (the fed
-    tokens already appended); q_lengths [B] (Sq > 1 only); k_scales /
-    v_scales [P] fp32 (int8 pools only).  Returns [B, H_q, Sq, D] fp32."""
+    fp32 or int8; page_tables [B, max_pages] int32 or a
+    :class:`TwoLevelTables`; lengths [B] (the fed tokens already
+    appended); q_lengths [B] (Sq > 1 only); k_scales / v_scales [P] fp32
+    (int8 pools only); page_starts [B, max_pages] (flat tables only),
+    windows / sinks [B] int32.  Returns [B, H_q, Sq, D] fp32."""
     if q.dim() != 4:
         raise ValueError(f"decode query must be [B, H, Sq, D], got "
                          f"{tuple(q.shape)}")
@@ -262,9 +436,24 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, lengths,
     if k_scales is not None and not quantized:
         raise ValueError("k_scales/v_scales dequantize an int8 pool; this "
                          f"pool is {k_pages.dtype}")
+    two = isinstance(page_tables, TwoLevelTables)
+    if two and page_starts is not None:
+        raise ValueError(
+            "a TwoLevelTables walk carries its own per-block starts — "
+            "page_starts is the flat-table contract")
+    if sinks is not None and windows is None:
+        raise ValueError(
+            "sinks only pin attention-sink pages against a sliding "
+            "window — pass windows with them")
+    walk = ("two_level" if two else "starts"
+            if page_starts is not None or windows is not None else "flat")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
+        if walk != "flat":
+            return paged_windowed_reference(
+                q, k_pages, v_pages, page_tables, lengths, q_lengths,
+                page_starts, windows, sinks, scale, k_scales, v_scales)
         if Sq == 1:
             return paged_decode_reference(q, k_pages, v_pages, page_tables,
                                           lengths, scale, k_scales, v_scales)
@@ -274,41 +463,61 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, lengths,
     if q.device.type != "cuda":
         raise ValueError(
             f"paged_decode_attention runs on cuda or cpu, not {q.device}")
-    tables = _int32(page_tables, q.device)
+    B, _, _, D = q.shape
+    Hkv, P, page_size, _ = k_pages.shape
     lens = _int32(lengths, q.device).reshape(-1)
     qlens = None if q_lengths is None else _int32(q_lengths,
                                                   q.device).reshape(-1)
-    _check(q, k_pages, v_pages, tables, lens, qlens, k_scales, v_scales)
     variant = ("verify" if Sq > 1 else "decode") \
         + ("_i8" if quantized else "_f32")
-    B, _, _, D = q.shape
-    Hkv, P, page_size, _ = k_pages.shape
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if variant == "decode_f32":
-        args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                B, Hkv, G, P, page_size, tables.shape[1], D, float(scale),
-                stream)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    if walk == "flat":
+        tables = _int32(page_tables, q.device)
+        _check(q, k_pages, v_pages, tables, lens, qlens, k_scales, v_scales)
+        entry = variant
+        if variant == "decode_f32":
+            args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                    tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                    B, Hkv, G, P, page_size, tables.shape[1], D,
+                    float(scale), stream)
+        else:
+            args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                    ptr(k_scales), ptr(v_scales), tables.data_ptr(),
+                    lens.data_ptr(), ptr(qlens), out.data_ptr(),
+                    B, Hkv, G, Sq, P, page_size, tables.shape[1], D,
+                    float(scale), stream)
     else:
-        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        tables, l2, starts, bs, win, snk = _walk_operands(
+            page_tables, page_starts, windows, sinks, B, page_size, q.device)
+        # _check sees the flat view's shape: [B, max_pages]
+        _check(q, k_pages, v_pages, tables, lens, qlens, k_scales, v_scales)
+        max_pages = tables.shape[1] * (bs or 1)
+        n_blocks = l2.shape[0] if l2 is not None else 0
+        entry = "walk_i8" if quantized else "walk_f32"
         args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                ptr(k_scales), ptr(v_scales), tables.data_ptr(),
-                lens.data_ptr(), ptr(qlens), out.data_ptr(),
-                B, Hkv, G, Sq, P, page_size, tables.shape[1], D,
-                float(scale), stream)
+                ptr(k_scales), ptr(v_scales), tables.data_ptr(), ptr(l2),
+                starts.data_ptr(), lens.data_ptr(), ptr(qlens), ptr(win),
+                ptr(snk), out.data_ptr(), B, Hkv, G, Sq, P, page_size,
+                max_pages, bs, n_blocks, D, float(scale), stream)
     with torch.cuda.device(q.device):  # launch on the tensors' card
-        err = _entry(variant)(*args)
-    _build.check(err, "paged_" + variant)
-    paged_decode_attention.launches += 1
-    paged_decode_attention.launches_by_variant[variant] += 1
+        err = _entry(entry)(*args)
+    _build.check(err, "paged_" + entry)
+    counts = paged_decode_attention
+    counts.launches += 1
+    counts.launches_by_variant[variant] += 1
+    counts.launches_by_table[walk] += 1
+    counts.windowed_launches += int(windows is not None)
     return out
 
 
 def reset_launches() -> None:
-    """Zero the launch counters (total and by variant)."""
+    """Zero the launch counters (total, by variant, by walk, windowed)."""
     paged_decode_attention.launches = 0
     paged_decode_attention.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+    paged_decode_attention.launches_by_table = dict.fromkeys(TABLE_WALKS, 0)
+    paged_decode_attention.windowed_launches = 0
 
 
 reset_launches()

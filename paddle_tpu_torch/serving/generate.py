@@ -18,6 +18,10 @@ serving steps:
   committed token and d drafted ones) in one step; attention is the
   paged kernel's verify variant, each row causal inside the block.
 
+Both steps take ``windows`` / ``sinks`` (the sliding-window + attention-
+sink decode mask, per row) and ``table_block`` (two-level page tables);
+with either, the kernel walks explicit page starts (``_step_tables``).
+
 :class:`ContinuousBatchingLoop` keeps up to ``max_batch`` sequences in
 flight.  Admission is reservation-based and FIFO (a request enters only
 when the pool covers every admitted sequence's worst case), each
@@ -30,15 +34,19 @@ with is committed, and ``pool.truncate_seq`` rolls the rejected tokens
 back.  A non-finite logits row quarantines only its own sequence; any
 exception out of a step frees every stepping sequence's pages before it
 propagates.  Both steps pass an int8 pool's per-page scales to the
-kernel.
+kernel.  A request with ``window=`` decodes under the sliding window
+(plus ``sinks`` tokens' pages); before each decode step the loop evicts
+the pages that window can never attend again, so a long context's walk
+stays at sinks + window pages.  ``table_block=`` sends every decode and
+verify step's tables through the two-level view.
 
 ``full_forward`` / ``full_decode`` are the oracles: per-sequence greedy
-decode recomputing the whole prefix with plain attention and no cache.
+decode recomputing the whole prefix with plain attention and no cache,
+under ``window_mask`` for windowed decode.
 
 Left for later slices: sampling and sampled speculation, the prefix
 cache with chunked prefill (and with it the corpus drafter), adapters,
-bf16 pools, window and sink decode, two-level tables, SPMD programs,
-the tiered KV store and the Engine front end.
+bf16 pools, SPMD programs, the tiered KV store and the Engine front end.
 """
 
 from __future__ import annotations
@@ -52,8 +60,14 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..kernels.flash_attention import flash_attention, reference_attention
+from ..kernels.flash_attention import (
+    NEG_INF,
+    flash_attention,
+    reference_attention,
+)
 from ..kernels.paged_attention import (
+    PAD_START,
+    TwoLevelTables,
     _group_size,
     paged_decode_attention,
     repeat_kv,
@@ -73,6 +87,7 @@ __all__ = [
     "full_forward",
     "init_decode_params",
     "params_from_jax",
+    "window_mask",
 ]
 
 _LAYER_KEYS = ("wq", "wk", "wv", "wo", "ln1_g", "ln1_b", "w1", "b1", "w2",
@@ -190,12 +205,10 @@ def _ffn_block(h, lp):
     return _layernorm(h + (u @ lp["w2"] + lp["b2"]), lp["ln2_g"], lp["ln2_b"])
 
 
-@torch.inference_mode()
-def full_forward(params: Dict, cfg: DecodeConfig, tokens,
-                 device=None) -> np.ndarray:
-    """Oracle forward: full-sequence causal attention (plain PyTorch), no
-    cache.  tokens [S] int -> logits [S, V] numpy."""
-    st = params_from_jax(params, device)
+def _forward_hidden(st: Dict, cfg: DecodeConfig, tokens,
+                    mask=None) -> torch.Tensor:
+    """The oracle's last hidden states [S, d] on the params' device;
+    ``mask`` ([S, S] bool, query x key) replaces the causal mask."""
     dev = st["embed"].device
     tokens = np.asarray(tokens, np.int64)
     S = tokens.shape[0]
@@ -203,6 +216,8 @@ def full_forward(params: Dict, cfg: DecodeConfig, tokens,
         raise ValueError(f"sequence length {S} > max_length {cfg.max_length}")
     d, H, Dh = cfg.d_model, cfg.n_head, cfg.head_dim
     Hkv, G = cfg.num_kv_heads, cfg.group_size
+    if mask is not None:
+        mask = torch.as_tensor(np.asarray(mask, bool), device=dev)
     tok = torch.as_tensor(tokens, device=dev)
     h = st["embed"][tok] * float(np.sqrt(d)) + st["pos"][:S]
     for lp in st["layers"]:
@@ -210,24 +225,73 @@ def full_forward(params: Dict, cfg: DecodeConfig, tokens,
         k = (h @ lp["wk"]).reshape(S, Hkv, Dh).transpose(0, 1)[None]
         v = (h @ lp["wv"]).reshape(S, Hkv, Dh).transpose(0, 1)[None]
         k, v = repeat_kv(k, v, G)
-        attn = reference_attention(q, k, v, causal=True, scale=Dh ** -0.5)
+        if mask is None:
+            attn = reference_attention(q, k, v, causal=True, scale=Dh ** -0.5)
+        else:
+            scores = torch.matmul(q, k.transpose(-1, -2)) * Dh ** -0.5
+            scores = scores.masked_fill(~mask, NEG_INF)
+            attn = torch.matmul(torch.softmax(scores, dim=-1), v)
         attn = attn[0].transpose(0, 1).reshape(S, d)
         h = _layernorm(h + attn @ lp["wo"], lp["ln1_g"], lp["ln1_b"])
         h = _ffn_block(h, lp)
+    return h
+
+
+@torch.inference_mode()
+def full_forward(params: Dict, cfg: DecodeConfig, tokens, device=None,
+                 mask=None) -> np.ndarray:
+    """Oracle forward: full-sequence causal attention (plain PyTorch), no
+    cache.  tokens [S] int -> logits [S, V] numpy.  ``mask`` (optional
+    [S, S] bool, query x key) replaces the causal mask: the windowed
+    oracle passes :func:`window_mask`."""
+    st = params_from_jax(params, device)
+    h = _forward_hidden(st, cfg, tokens, mask)
     return (h @ st["embed"].T).cpu().numpy()
 
 
+def window_mask(S: int, prompt_len: int, window: int, sinks: int,
+                page_size: int) -> np.ndarray:
+    """The [S, S] query x key visibility of windowed decode, the rule the
+    kernel's page mask, the pool's eviction and the oracle share:
+
+    - prompt queries (position < prompt_len) attend fully causal, since
+      prefill is full attention;
+    - a decode query at position p sees key j iff ``j <= p`` and j's page
+      (start ``(j // page_size) * page_size``) is a sink page (start <
+      sinks) or overlaps the trailing window (start + page_size > p + 1 -
+      window).
+
+    Page-granular, as the kernel decides visibility per page start and
+    the pool drops exactly the pages this mask can never light again."""
+    if window < 1:
+        raise ValueError(f"window must be >= 1 token, got {window}")
+    j = np.arange(S)
+    p = np.arange(S)[:, None]
+    page_start = (j // page_size) * page_size
+    return (j[None, :] <= p) & (
+        (p < prompt_len)
+        | (page_start[None, :] < sinks)
+        | (page_start[None, :] + page_size > p + 1 - window))
+
+
+@torch.inference_mode()
 def full_decode(params: Dict, cfg: DecodeConfig, prompt: Sequence[int],
-                max_new_tokens: int, device=None
-                ) -> Tuple[List[int], List[np.ndarray]]:
+                max_new_tokens: int, device=None,
+                window: Optional[int] = None, sinks: int = 0,
+                page_size: int = 1) -> Tuple[List[int], List[np.ndarray]]:
     """Greedy per-sequence decode, recomputing the full prefix each token.
-    Returns (generated tokens, the [V] logits row behind each)."""
+    Returns (generated tokens, the [V] logits row behind each).
+    ``window`` / ``sinks`` / ``page_size`` apply the page-granular
+    sliding-window + attention-sink decode mask (:func:`window_mask`)."""
     st = params_from_jax(params, device)
     tokens = [int(t) for t in prompt]
     out: List[int] = []
     rows: List[np.ndarray] = []
     for _ in range(max_new_tokens):
-        row = full_forward(st, cfg, tokens, device=st["embed"].device)[-1]
+        mask = (window_mask(len(tokens), len(prompt), window, sinks,
+                            page_size) if window is not None else None)
+        h_last = _forward_hidden(st, cfg, tokens, mask)[-1]
+        row = (h_last @ st["embed"].T).cpu().numpy()
         nxt = int(row.argmax())
         rows.append(row)
         out.append(nxt)
@@ -235,6 +299,29 @@ def full_decode(params: Dict, cfg: DecodeConfig, prompt: Sequence[int],
         if cfg.eos_id is not None and nxt == cfg.eos_id:
             break
     return out, rows
+
+
+def _step_tables(pool: KVCachePool, seq_ids: Sequence[int], windows, sinks,
+                 table_block: Optional[int]):
+    """One step's page-table view and windowing operands: (tables,
+    lengths, kw), where tables is a flat [B, max_pages] array or a
+    TwoLevelTables and kw the extra keywords of paged_decode_attention.
+    A windowed flat view carries explicit page starts (an evicted
+    table's pages no longer sit at ``i * page_size``); a TwoLevelTables
+    always carries its starts."""
+    kw = {}
+    if windows is not None:
+        kw["windows"] = np.asarray(windows, np.int32)
+        kw["sinks"] = (np.asarray(sinks, np.int32) if sinks is not None
+                       else np.zeros(len(seq_ids), np.int32))
+    if table_block:
+        tables, lengths = pool.two_level_tables(seq_ids, table_block)
+    elif windows is not None:
+        tables, kw["page_starts"], lengths = pool.page_tables_with_starts(
+            seq_ids)
+    else:
+        tables, lengths = pool.page_table_batch(seq_ids)
+    return tables, lengths, kw
 
 
 class _DecoderLayer(nn.Module):
@@ -256,7 +343,9 @@ class TransformerDecoder(nn.Module):
     ``device`` (None: the card).  Weights start at zero; load them with
     :meth:`load_jax_params`.  ``attend_prefill``, ``attend_decode`` and
     ``attend_verify`` are the attention calls the steps make — the flash
-    kernel and the paged kernel's decode and verify variants."""
+    kernel and the paged kernel's decode and verify variants; ``walk``
+    carries the long-context keywords (``page_starts``, ``windows``,
+    ``sinks``) and ``tables`` may then be a TwoLevelTables."""
 
     def __init__(self, cfg: DecodeConfig, device=None):
         super().__init__()
@@ -295,37 +384,55 @@ class TransformerDecoder(nn.Module):
                                scale=self.cfg.head_dim ** -0.5, k_lengths=lens)
 
     def attend_decode(self, q, k_pages, v_pages, tables, lengths,
-                      k_scales=None, v_scales=None) -> torch.Tensor:
+                      k_scales=None, v_scales=None, **walk) -> torch.Tensor:
         """Sq=1 attention over one layer of the pool (paged kernel,
         decode variant; scales for an int8 pool)."""
         return paged_decode_attention(q, k_pages, v_pages, tables, lengths,
                                       scale=self.cfg.head_dim ** -0.5,
-                                      k_scales=k_scales, v_scales=v_scales)
+                                      k_scales=k_scales, v_scales=v_scales,
+                                      **walk)
 
     def attend_verify(self, q, k_pages, v_pages, tables, lengths,
-                      q_lengths, k_scales=None, v_scales=None
+                      q_lengths, k_scales=None, v_scales=None, **walk
                       ) -> torch.Tensor:
         """Multi-token attention over one layer of the pool, q [B, H, Sq,
         D] with ragged ``q_lengths`` (paged kernel, verify variant)."""
         return paged_decode_attention(q, k_pages, v_pages, tables, lengths,
                                       scale=self.cfg.head_dim ** -0.5,
                                       q_lengths=q_lengths,
-                                      k_scales=k_scales, v_scales=v_scales)
+                                      k_scales=k_scales, v_scales=v_scales,
+                                      **walk)
+
+    def _tables(self, pool, seq_ids, windows, sinks, table_block):
+        """_step_tables with every array on the model's device, copied
+        once a step rather than once a layer."""
+        tables, lengths, walk = _step_tables(pool, seq_ids, windows, sinks,
+                                             table_block)
+        dev = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
+        if isinstance(tables, TwoLevelTables):
+            tables = TwoLevelTables(dev(tables.l1), dev(tables.l2),
+                                    dev(tables.starts), tables.block_size)
+        else:
+            tables = dev(tables)
+        return tables, dev(lengths), {k: dev(a) for k, a in walk.items()}
 
     @torch.inference_mode()
     def decode_step(self, pool: KVCachePool, seq_ids: Sequence[int],
-                    tokens, positions) -> torch.Tensor:
+                    tokens, positions, windows=None, sinks=None,
+                    table_block: Optional[int] = None) -> torch.Tensor:
         """Feed token[i] at position[i] for every sequence, append its K/V
-        to the pool, and return the next-token logits [B, V]."""
+        to the pool, and return the next-token logits [B, V].
+        ``windows`` / ``sinks`` ([B]; a row without a window passes
+        PAD_START / 0) apply the window + sink decode mask; ``table_block``
+        walks two-level tables."""
         cfg = self.cfg
         B = len(seq_ids)
         d, H, Dh, Hkv = cfg.d_model, cfg.n_head, cfg.head_dim, cfg.num_kv_heads
         h = self.embed[self._index(tokens)] * float(np.sqrt(d)) \
             + self.pos[self._index(positions)]
         pages, slots = pool.append_token(seq_ids)
-        tables, lengths = pool.page_table_batch(seq_ids)
-        tables = torch.as_tensor(tables, device=self.device)
-        lengths = torch.as_tensor(lengths, device=self.device)
+        tables, lengths, walk = self._tables(pool, seq_ids, windows, sinks,
+                                             table_block)
         for li, layer in enumerate(self.layers):
             lp = layer.params()
             q = (h @ lp["wq"]).reshape(B, H, Dh)
@@ -335,7 +442,7 @@ class TransformerDecoder(nn.Module):
             k_scales, v_scales = pool.layer_scales(li)
             attn = self.attend_decode(q[:, :, None, :], pool.k_pages[li],
                                       pool.v_pages[li], tables, lengths,
-                                      k_scales, v_scales)
+                                      k_scales, v_scales, **walk)
             attn = attn[:, :, 0, :].reshape(B, d)
             h = _layernorm(h + attn @ lp["wo"], lp["ln1_g"], lp["ln1_b"])
             h = _ffn_block(h, lp)
@@ -345,7 +452,8 @@ class TransformerDecoder(nn.Module):
     def verify_step(self, pool: KVCachePool, seq_ids: Sequence[int],
                     blocks: Sequence[Sequence[int]],
                     start_positions: Sequence[int],
-                    pad_to: Optional[int] = None) -> torch.Tensor:
+                    pad_to: Optional[int] = None, windows=None, sinks=None,
+                    table_block: Optional[int] = None) -> torch.Tensor:
         """One speculative verify step: sequence i feeds ``blocks[i]`` —
         its last committed token plus d_i drafted ones — from absolute
         position ``start_positions[i]``, appends every fed token's K/V to
@@ -360,7 +468,8 @@ class TransformerDecoder(nn.Module):
         a multiple of 8 pages, so that XLA compiles each shape once;
         eager torch has no such cost, and this step writes only the valid
         rows and passes the tables as they are.  The caller owns
-        acceptance and rollback (``pool.truncate_seq``)."""
+        acceptance and rollback (``pool.truncate_seq``).  ``windows``,
+        ``sinks`` and ``table_block`` as in :meth:`decode_step`."""
         cfg = self.cfg
         lens = np.asarray([len(b) for b in blocks], np.int32)
         if not len(lens) or lens.min() < 1:
@@ -382,9 +491,8 @@ class TransformerDecoder(nn.Module):
         for i, blk in enumerate(blocks):
             tokens[i, :lens[i]] = blk
         pages, slots = pool.append_tokens(seq_ids, lens)
-        tables, lengths = pool.page_table_batch(seq_ids)
-        tables = torch.as_tensor(tables, device=self.device)
-        lengths = torch.as_tensor(lengths, device=self.device)
+        tables, lengths, walk = self._tables(pool, seq_ids, windows, sinks,
+                                             table_block)
         q_lengths = torch.as_tensor(lens, device=self.device)
         b_idx = self._index(np.repeat(np.arange(B), lens))
         t_idx = self._index(np.concatenate([np.arange(n) for n in lens]))
@@ -404,7 +512,7 @@ class TransformerDecoder(nn.Module):
             attn = self.attend_verify(
                 q.transpose(1, 2).contiguous(), pool.k_pages[li],
                 pool.v_pages[li], tables, lengths, q_lengths, k_scales,
-                v_scales)  # [B, H, Sq, Dh]
+                v_scales, **walk)  # [B, H, Sq, Dh]
             attn = attn.transpose(1, 2).reshape(B, Sq, d)
             h = _layernorm(h + attn @ lp["wo"], lp["ln1_g"], lp["ln1_b"])
             h = _ffn_block(h, lp)
@@ -462,8 +570,17 @@ class TransformerDecoder(nn.Module):
 
 @dataclasses.dataclass
 class DecodeRequest:
+    """One request.  ``window`` (None: full attention) makes its decode
+    attend only the pages that overlap the last ``window`` tokens, plus
+    the pages of its first ``sinks`` tokens (attention sinks); prefill
+    stays full attention.  The loop evicts the pages that mask can never
+    light again, and the output is token-identical to ``full_decode``
+    under the same ``window_mask``."""
+
     prompt: Sequence[int]
     max_new_tokens: int
+    window: Optional[int] = None
+    sinks: int = 0
 
 
 @dataclasses.dataclass
@@ -521,18 +638,31 @@ class ContinuousBatchingLoop:
     the rejected tokens leave the pool through ``truncate_seq``.  Greedy
     output is token-identical to unspeculated decode.
 
+    Requests with ``window=`` decode under the window + sink mask: a
+    step whose batch holds a generating windowed sequence passes per-row
+    windows and sinks (PAD_START / 0 for the others), and before each
+    decode step every generating windowed sequence's dead interior pages
+    are evicted.  ``table_block=b`` (None: flat tables) walks every
+    decode and verify step's tables through the two-level view with L2
+    blocks of b pages.
+
     Counters: ``steps``, ``prefill_steps``, ``decode_steps`` (verify
     steps included), ``spec_steps`` (verify steps), ``drafted_tokens``,
-    ``accepted_tokens``, ``rolled_back_tokens``, ``quarantined``;
+    ``accepted_tokens``, ``rolled_back_tokens``, ``quarantined``,
+    ``pages_evicted``, ``max_decode_table_pages`` (the widest table any
+    decode or verify step walked, after its eviction and appends);
     host-clock durations of each step (ending after the logits reach the
     host) in ``prefill_step_s``, ``decode_step_s`` and
     ``verify_step_s``."""
 
     def __init__(self, params: Union[Dict, TransformerDecoder],
                  cfg: DecodeConfig, pool: KVCachePool, max_batch: int = 4,
-                 device=None, speculate: int = 0, drafter=None):
+                 device=None, speculate: int = 0, drafter=None,
+                 table_block: Optional[int] = None):
         if int(speculate) < 0:
             raise ValueError("speculate must be >= 0")
+        if table_block is not None and int(table_block) < 1:
+            raise ValueError("table_block must be >= 1 (or None)")
         self.device = resolve_device(device)
         if pool.device != self.device:
             raise ValueError(f"pool lives on {pool.device}, the loop runs "
@@ -553,6 +683,7 @@ class ContinuousBatchingLoop:
         self.pool = pool
         self.max_batch = int(max_batch)
         self._speculate = int(speculate)
+        self._table_block = int(table_block) if table_block else None
         self.drafter = drafter if drafter is not None else (
             PromptLookupDrafter(max_draft=self._speculate)
             if self._speculate else None)
@@ -565,6 +696,8 @@ class ContinuousBatchingLoop:
         self.drafted_tokens = 0
         self.accepted_tokens = 0
         self.rolled_back_tokens = 0
+        self.pages_evicted = 0
+        self.max_decode_table_pages = 0
         self.prefill_step_s: List[float] = []
         self.decode_step_s: List[float] = []
         self.verify_step_s: List[float] = []
@@ -617,6 +750,15 @@ class ContinuousBatchingLoop:
         for req in requests:
             if not len(req.prompt):
                 raise ValueError("empty prompt")
+            if req.window is not None and req.window < 1:
+                raise ValueError(
+                    f"window must be >= 1 token, got {req.window}")
+            if req.sinks < 0:
+                raise ValueError(f"sinks must be >= 0, got {req.sinks}")
+            if req.sinks and req.window is None:
+                raise ValueError(
+                    "sinks without a window has no meaning — sink pages "
+                    "are the exception to a window's eviction")
             # validate EVERY request before any work: a mid-run raise
             # would strand pages and drop finished sequences' results
             need = self._footprint(req)
@@ -677,13 +819,50 @@ class ContinuousBatchingLoop:
                 self._release_draft(a)
                 reserved_pages -= a.charged
 
+        def window_args(batch: List[_Active]):
+            """The step's (windows, sinks) [B] int32 operands, or (None,
+            None) when no row is a generating windowed sequence (a
+            prompt position rides full attention: PAD_START / 0)."""
+            rows = [a.req.window is not None
+                    and a.pos >= len(a.result.prompt) for a in batch]
+            if not any(rows):
+                return None, None
+            win = np.full(len(batch), PAD_START, np.int32)
+            snk = np.zeros(len(batch), np.int32)
+            for i, a in enumerate(batch):
+                if rows[i]:
+                    win[i], snk[i] = a.req.window, a.req.sinks
+            return win, snk
+
+        def evict_windowed(batch: List[_Active]) -> None:
+            """Drop every generating windowed sequence's dead interior
+            pages before the step's appends: window_mask is monotone in
+            the query position, so a page it hides now stays hidden."""
+            for a in batch:
+                if a.req.window is not None \
+                        and a.pos >= len(a.result.prompt):
+                    self.pages_evicted += self.pool.evict_interior(
+                        a.seq_id, a.req.window, a.req.sinks)
+
+        def walk_args(batch: List[_Active]) -> Dict:
+            """The step's long-context keywords, only those in use (a
+            full-attention flat step calls the steps as before)."""
+            win, snk = window_args(batch)
+            kw = {} if win is None else dict(windows=win, sinks=snk)
+            if self._table_block:
+                kw["table_block"] = self._table_block
+            return kw
+
         def verify(batch: List[_Active], blocks: List[List[int]],
                    t0: float, step_idx: int) -> None:
             """One verify step over every sequence's block, then the
             acceptance walk and rollback of each."""
             logits3 = self.model.verify_step(
                 self.pool, [a.seq_id for a in batch], blocks,
-                [a.pos for a in batch], pad_to=self._speculate + 1)
+                [a.pos for a in batch], pad_to=self._speculate + 1,
+                **walk_args(batch))
+            self.max_decode_table_pages = max(self.max_decode_table_pages,
+                                              self.pool.max_live_pages())
             self.steps += 1
             self.decode_steps += 1
             self.spec_steps += 1
@@ -757,6 +936,7 @@ class ContinuousBatchingLoop:
                     continue  # re-admit into freed slots before decoding
 
                 batch = list(active)
+                evict_windowed(batch)
                 blocks = [self._draft_block(a) for a in batch]
                 t0 = time.perf_counter()
                 step_idx = self.steps
@@ -766,7 +946,9 @@ class ContinuousBatchingLoop:
                 logits = self.model.decode_step(
                     self.pool, [a.seq_id for a in batch],
                     [a.result.tokens[-1] for a in batch],
-                    [a.pos for a in batch])
+                    [a.pos for a in batch], **walk_args(batch))
+                self.max_decode_table_pages = max(
+                    self.max_decode_table_pages, self.pool.max_live_pages())
                 self.steps += 1
                 self.decode_steps += 1
                 host, ok, now = quarantine(batch, logits, step_idx)

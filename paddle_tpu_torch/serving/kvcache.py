@@ -24,6 +24,12 @@ the write.
 ``truncate_seq`` is the speculative rollback: rejected draft tokens
 leave the table, and only pages it empties return to the free list.
 
+``evict_interior`` is sliding-window + attention-sink eviction: the pages a
+windowed decode can never attend again leave the table, which is then
+compacted, and the kept pages' token positions move into the handle's
+explicit ``starts``.  ``page_tables_with_starts`` and
+``two_level_tables`` are the batch views the windowed kernel walks.
+
 ``dtype="int8"`` pools hold amax-quantized pages with one fp32 scale per
 (layer, page) for each of K and V, in ``k_scales``/``v_scales`` [L, P]
 on the pool's DEVICE (0 = no content), where the JAX pool keeps them in
@@ -32,9 +38,9 @@ host numpy.  ``write_kv`` quantizes with the JAX pool's arithmetic (see
 their scales.
 
 Left for later slices: refcounted pages and copy-on-write (prefix
-cache), bf16 pages, export and import (tiered KV, fleet handoff),
-window eviction, two-level tables and defrag.  The pool is driven from
-one thread (the decode loop) and takes no lock.
+cache), bf16 pages, export and import (tiered KV, fleet handoff) and
+defrag.  Tables are unshared, so a page leaving a table is freed.  The
+pool is driven from one thread (the decode loop) and takes no lock.
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.paged_attention import _group_size
+from ..kernels.paged_attention import PAD_START, TwoLevelTables, _group_size
 
 __all__ = ["KVCachePool", "PagePoolExhausted", "SequenceHandle"]
 
@@ -58,14 +64,38 @@ class PagePoolExhausted(RuntimeError):
 
 @dataclasses.dataclass
 class SequenceHandle:
-    """Per-sequence page table: ordered page ids + token count."""
+    """Per-sequence page table: ordered page ids + token count.
+
+    ``starts`` is the absolute token position of each page's slot 0.
+    None, the common case, means the implicit ``i * page_size``; it
+    becomes explicit the first time eviction drops interior pages, after
+    which the table holds live pages only.  Every start is a multiple of
+    page_size, they rise strictly, and the tail page is never evicted, so
+    the append slot (``length % page_size``) is the same either way."""
 
     seq_id: int
     pages: List[int] = dataclasses.field(default_factory=list)
     length: int = 0
+    starts: Optional[List[int]] = None
 
     def capacity(self, page_size: int) -> int:
         return len(self.pages) * page_size
+
+    def page_starts(self, page_size: int) -> List[int]:
+        """Absolute slot-0 positions, explicit or implicit."""
+        if self.starts is not None:
+            return self.starts
+        return [i * page_size for i in range(len(self.pages))]
+
+    def tail_free_slots(self, page_size: int) -> int:
+        """Unclaimed slots in the tail page: the append-side room, right
+        after eviction too (``capacity`` counts resident pages, which is
+        less than an evicted table's extent)."""
+        if not self.pages:
+            return 0
+        last = (self.starts[-1] if self.starts is not None
+                else (len(self.pages) - 1) * page_size)
+        return last + page_size - self.length
 
 
 _DTYPES = {"float32": torch.float32, "int8": torch.int8}
@@ -118,7 +148,8 @@ class KVCachePool:
         self._tables: Dict[int, SequenceHandle] = {}
         self._index_memo = None  # write_kv's last (pages, slots, index)
         self._stats = {"page_allocs": 0, "page_frees": 0, "token_appends": 0,
-                       "used_pages_high_water": 0, "tokens_truncated": 0}
+                       "used_pages_high_water": 0, "tokens_truncated": 0,
+                       "pages_evicted": 0}
 
     # -- sizing ---------------------------------------------------------
 
@@ -180,9 +211,11 @@ class KVCachePool:
         ceil(length / page_size) leave the table and return to the free
         list (LIFO, as free_seq returns them), their scales cleared; the
         kept tail page's surplus slots hold stale content that the
-        length masks and the next append overwrites.  Returns the number
-        of pages freed.  ``length`` must lie in [0, current length]:
-        growth is append_tokens' job."""
+        length masks and the next append overwrites.  On an evicted table
+        the pages whose start lies below ``length`` stay, and a length
+        inside a dropped interior gap raises.  Returns the number of
+        pages freed.  ``length`` must lie in [0, current length]: growth
+        is append_tokens' job."""
         h = self._tables[seq_id]
         n = int(length)
         if n < 0 or n > h.length:
@@ -191,13 +224,60 @@ class KVCachePool:
                 f"{n} tokens — length must shrink into [0, {h.length}]")
         if n == h.length:
             return 0
-        keep = self.pages_needed(n, self.page_size)
+        if h.starts is None:
+            keep = self.pages_needed(n, self.page_size)
+        else:
+            # a rollback removes just-appended tail tokens, so the new
+            # length must land inside a kept page: a dropped interior gap
+            # has no page to hold it
+            keep = sum(1 for st in h.starts if st < n)
+            if n and (not keep
+                      or n > h.starts[keep - 1] + self.page_size):
+                raise ValueError(
+                    f"cannot truncate evicted sequence {seq_id} to {n} "
+                    "tokens — that position falls in a dropped interior "
+                    "gap")
+            h.starts = h.starts[:keep]
         dropped = h.pages[keep:]
         h.pages = h.pages[:keep]
         self._stats["tokens_truncated"] += h.length - n
         h.length = n
         self._free.extend(reversed(dropped))
         self._clear_scales(dropped)
+        self._stats["page_frees"] += len(dropped)
+        return len(dropped)
+
+    def evict_interior(self, seq_id: int, window: int,
+                       sinks: int = 0) -> int:
+        """Sliding-window + attention-sink eviction: drop the pages a
+        windowed decode can never attend again.  A page starting at
+        token ``st`` goes iff it lies past the sinks (``st >= sinks``)
+        and wholly outside every future query's window (``st + page_size
+        <= length - window``; window >= 1 keeps the tail page, and the
+        window's trailing edge only moves forward).  The kept pages'
+        positions move into the handle's ``starts``; the dropped pages
+        return to the free list (in reversed order, as truncate_seq
+        returns them) with their int8 scales cleared.  Returns the number
+        of pages dropped (also counted in ``stats()["pages_evicted"]``)."""
+        window = int(window)
+        sinks = int(sinks)
+        if window < 1:
+            raise ValueError(f"window must be >= 1 token, got {window}")
+        if sinks < 0:
+            raise ValueError(f"sinks must be >= 0 tokens, got {sinks}")
+        h = self._tables[seq_id]
+        starts = h.page_starts(self.page_size)
+        keep = [i for i, st in enumerate(starts)
+                if st < sinks or st + self.page_size > h.length - window]
+        if len(keep) == len(h.pages):
+            return 0
+        kept = set(keep)
+        dropped = [p for i, p in enumerate(h.pages) if i not in kept]
+        h.starts = [starts[i] for i in keep]
+        h.pages = [h.pages[i] for i in keep]
+        self._free.extend(reversed(dropped))
+        self._clear_scales(dropped)
+        self._stats["pages_evicted"] += len(dropped)
         self._stats["page_frees"] += len(dropped)
         return len(dropped)
 
@@ -233,7 +313,7 @@ class KVCachePool:
         need = 0
         for s, c in zip(seq_ids, counts):
             h = self._tables[s]
-            free_slots = h.capacity(self.page_size) - h.length
+            free_slots = h.tail_free_slots(self.page_size)
             if c > free_slots:
                 need += self.pages_needed(c - free_slots, self.page_size)
         if need > len(self._free):
@@ -247,8 +327,12 @@ class KVCachePool:
         for s, c in zip(seq_ids, counts):
             h = self._tables[s]
             for _ in range(c):
-                if h.length == h.capacity(self.page_size):
+                if h.tail_free_slots(self.page_size) == 0:
                     h.pages.append(self._free.pop())
+                    if h.starts is not None:
+                        # evicted table: the fresh tail page starts at the
+                        # current length (a page multiple: the tail was full)
+                        h.starts.append(h.length)
                     self._stats["page_allocs"] += 1
                 pages[i] = h.pages[-1]
                 slots[i] = h.length % self.page_size
@@ -359,8 +443,64 @@ class KVCachePool:
             lengths[i] = h.length
         return tables, lengths
 
+    def page_tables_with_starts(self, seq_ids: Sequence[int]
+                                ) -> Tuple[np.ndarray, np.ndarray,
+                                           np.ndarray]:
+        """(tables, starts, lengths): page_table_batch plus a [B,
+        max_pages] int32 array of each page's slot-0 position, PAD_START
+        past each row's pages — the view for the explicit-starts walk,
+        whose position mask then holds on an evicted (compacted) table."""
+        handles = [self._tables[s] for s in seq_ids]
+        maxp = max((len(h.pages) for h in handles), default=1) or 1
+        tables = np.zeros((len(handles), maxp), np.int32)
+        starts = np.full((len(handles), maxp), PAD_START, np.int32)
+        lengths = np.empty(len(handles), np.int32)
+        for i, h in enumerate(handles):
+            n = len(h.pages)
+            tables[i, :n] = h.pages
+            starts[i, :n] = h.page_starts(self.page_size)
+            lengths[i] = h.length
+        return tables, starts, lengths
+
+    def two_level_tables(self, seq_ids: Sequence[int], block_size: int
+                         ) -> Tuple[TwoLevelTables, np.ndarray]:
+        """(TwoLevelTables, lengths [B]): the batch as an L1 directory [B,
+        ceil(max_pages / block_size)] over [n_blocks, block_size] L2 blocks
+        of page ids and starts.  Block 0 is the shared pad block (page 0,
+        starts PAD_START), and every L1 row pads with it."""
+        bs = int(block_size)
+        if bs < 1:
+            raise ValueError(f"block_size must be >= 1, got {bs}")
+        handles = [self._tables[s] for s in seq_ids]
+        maxp = max((len(h.pages) for h in handles), default=1) or 1
+        n_l1 = self.pages_needed(maxp, bs)
+        l2_blocks = [np.zeros(bs, np.int32)]  # the shared pad block
+        st_blocks = [np.full(bs, PAD_START, np.int32)]
+        l1 = np.zeros((len(handles), n_l1), np.int32)
+        lengths = np.empty(len(handles), np.int32)
+        for i, h in enumerate(handles):
+            sts = h.page_starts(self.page_size)
+            for j in range(self.pages_needed(len(h.pages), bs)):
+                chunk = h.pages[j * bs:(j + 1) * bs]
+                l2b = np.zeros(bs, np.int32)
+                stb = np.full(bs, PAD_START, np.int32)
+                l2b[:len(chunk)] = chunk
+                stb[:len(chunk)] = sts[j * bs:(j + 1) * bs]
+                l1[i, j] = len(l2_blocks)
+                l2_blocks.append(l2b)
+                st_blocks.append(stb)
+            lengths[i] = h.length
+        return TwoLevelTables(l1=l1, l2=np.stack(l2_blocks),
+                              starts=np.stack(st_blocks),
+                              block_size=bs), lengths
+
     def length(self, seq_id: int) -> int:
         return self._tables[seq_id].length
+
+    def max_live_pages(self) -> int:
+        """Longest live table's page count (0 when idle): the width of
+        the decode step's table walk."""
+        return max((len(h.pages) for h in self._tables.values()), default=0)
 
     # -- accounting -----------------------------------------------------
 
@@ -380,7 +520,10 @@ class KVCachePool:
     def check_invariants(self) -> Dict:
         """Audit page ownership: every page id is either on the free list
         exactly once or in exactly one page table, and every table's
-        length fits its pages with no spare whole page.  An int8 pool also
+        length fits its pages with no spare whole page.  An evicted
+        table's starts must be one per page, page multiples, strictly
+        rising, with the tail page the one covering the length.  An int8
+        pool also
         audits its scales (``scale_errors``): a free page carrying a scale
         in any layer, or a live written page whose scales are set in some
         layers and 0 in others (all 0 is a scrubbed page, legitimate).
@@ -395,8 +538,11 @@ class KVCachePool:
                     double.append(p)
                     continue
                 owners[p] += 1
-            cap = h.capacity(self.page_size)
-            if h.length > cap or cap - h.length >= self.page_size:
+            if h.starts is None:
+                cap = h.capacity(self.page_size)
+                if h.length > cap or cap - h.length >= self.page_size:
+                    mismatches.append(h.seq_id)
+            elif not _starts_ok(h, self.page_size):
                 mismatches.append(h.seq_id)
         free_errors: List[int] = []
         seen_free = set()
@@ -412,6 +558,8 @@ class KVCachePool:
                     if not owners[p] and p not in seen_free]
         scale_bad: List[int] = []
         if self.quantized:
+            # the pages the length covers: every page of an evicted table
+            # (its length spans more pages than it keeps)
             written = set()
             for h in self._tables.values():
                 written.update(
@@ -435,3 +583,18 @@ class KVCachePool:
             "used_pages": self.used_pages,
             "live_sequences": len(self._tables),
         }
+
+
+def _starts_ok(h: SequenceHandle, page_size: int) -> bool:
+    """An evicted table's starts: one per page, each a page multiple,
+    strictly rising, and the tail page the one that covers the length
+    (eviction never drops the tail)."""
+    st = h.starts
+    if not st:
+        return not (h.length or h.pages)
+    return (len(st) == len(h.pages)
+            and all(s % page_size == 0 for s in st)
+            and all(a < b for a, b in zip(st, st[1:]))
+            and st[-1] < h.length <= st[-1] + page_size
+            and st[-1] == (KVCachePool.pages_needed(h.length, page_size)
+                           - 1) * page_size)
