@@ -37,6 +37,14 @@ prints no final result line):
    starts walk without windows against the flat launch and the two-level
    walk against the flat starts walk are reported (expected exactly
    equal).
+   The bf16 entries of flash_fwd, flash_bwd_dq and flash_bwd_dkv against
+   their bf16 plain versions on the training shape and the same edges:
+   each output within 2^-7 * max |plain| with at most 1% of its elements
+   not bit-equal, lse within 1e-5 relative; a planted fault (P, or dS,
+   dS^T and P^T, left unrounded before their products) must fail that
+   gate; and the bf16 kernels against the fp32 kernels on the same values
+   (out within 2^-8 * (P|V| + |out|) elementwise, gradients within 2^-6
+   in norm).
 3. Serving at the Transformer-base width (vocab 10000, d_model 512,
    8 heads, 6 layers, d_inner 2048, max_length 256; random weights from a
    seed): ``ContinuousBatchingLoop.run`` on 16 requests (prompts of 16-128
@@ -89,6 +97,23 @@ prints no final result line):
    max(1, max |grad|), and its norm of error within 1e-2 of its own
    norm (floored at 1e-4 of the largest leaf's, for the key biases,
    whose exact gradient is 0).
+   Then bench.py's Transformer (vocab 32000, fuse_qkv, dropout 0.1,
+   batch 32 x 256, ``MomentumOptimizer(1e-4, 0.9)``) at full width, ten
+   steps from one startup state under each AMP tier:
+   ``fluid.enable_amp("bfloat16")`` (the fp32 flash kernels) and
+   ``enable_amp("bfloat16", keep_output=True)`` (the bf16 entries).  The
+   counters, zeroed before each tier, must read 18 launches per step of
+   each flash kernel in the tier's dtype and 0 in the other; losses
+   finite, and the dropout-free loss of the trained state below the
+   startup state's; the fused_attention inputs and layer_norm outputs
+   bf16 under keep, fp32 under amp1; median step, tokens/s, peak memory
+   and a profiled step per tier.  Then, per tier, one batch-2 step with
+   dropout 0 on the card and on the CPU: loss within 2^-6, gradients
+   within 0.1 in norm (median leaf and all leaves); under keep every
+   flash call of the card's step against the bf16 plain versions on the
+   CPU (2^-7 max, 5% mismatch share, lse 1e-5), and a planted moved
+   rounding point that must fail.  Dropout on the card: keep fraction
+   within 5 sigma of 0.9, gradient g * mask, masks by seed.
 5. ResNet-50 training through the fluid entry points, conv tier:
    ``resnet_imagenet(depth=50, fuse_bn="conv")`` at full width (224 x
    224, 1000 classes), ``MomentumOptimizer(0.1, 0.9).minimize``,
@@ -129,7 +154,9 @@ prints no final result line):
    bn_epilogue at row 7's; rows 4d and 4e at the long-context decode
    shape after eviction (B 8, H 8, D 64, 34 live pages of a 4080-token
    context; SDPA with a boolean mask over the gathered K/V) and row 4a
-   over the same context unevicted.
+   over the same context unevicted; the bf16 entries of rows 1-3 at the
+   training shape (bound over the dense bf16 tensor peak, 989 TFLOP/s;
+   SDPA in bf16).
 
 Each phase prints one JSON line; the line before the last is the
 ``kernels`` summary and the last line is exactly
@@ -138,6 +165,7 @@ Each phase prints one JSON line; the line before the last is the
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -145,9 +173,18 @@ import sys
 import time
 
 PARITY_TOL = 1e-4      # fp32 kernel vs plain version, max abs error
+# bf16 kernel vs its bf16 plain version: both round at the TPU kernel's
+# points, so an output differs only where fp32 summation order moves a
+# value across a bf16 rounding boundary, by one bf16 ulp (<= 2^-7 of the
+# value), and only rarely; a moved rounding point changes 12-42% of them
+BF16_ULP = 2.0 ** -7   # max abs err <= BF16_ULP * max |plain|
+MISMATCH_SHARE = 0.01  # at most this share of the elements not bit-equal
+LSE_RTOL = 1e-5        # bf16 kernels' lse vs plain, relative
+BF16_VS_FP32 = 2.0 ** -6  # bf16 vs fp32 kernel gradients, relative in norm
 MARGIN_TOL = 1e-3      # top-2 logit margin below which a greedy tie may flip
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 SEED = 0
 CFG = dict(vocab_size=10000, d_model=512, n_head=8, n_layer=6, d_inner=2048,
            max_length=256)
@@ -325,6 +362,136 @@ def phase_bwd_parity(torch):
     return {k: max(v) for k, v in errs.items()}
 
 
+def _bf16_gate(got, want):
+    """A bf16 kernel output against its plain version: max abs error, its
+    bound (BF16_ULP * max |plain|) and the share of elements not
+    bit-equal."""
+    err = float((got.float() - want.float()).abs().max())
+    bound = BF16_ULP * float(want.float().abs().max())
+    share = float((got != want).float().mean())
+    return {"max_abs_err": err, "bound": bound, "mismatch_share": share,
+            "ok": err <= bound and share <= MISMATCH_SHARE}
+
+
+def _moved_bwd(fa, q, k, v, k_lengths, out, lse, dout, causal, scale):
+    """The bf16 backward with its operand rounding points moved past the
+    products: dS, dS^T and P^T enter them in fp32 (the gradients still
+    round once at the end)."""
+    f = [t.float() for t in (q, k, v, out, dout)]
+    return tuple(g.to(q.dtype) for g in fa.flash_attention_bwd_reference(
+        f[0], f[1], f[2], k_lengths, f[3], lse, f[4], causal, scale))
+
+
+def phase_bf16_parity(torch):
+    """The bf16 entries of flash_fwd, flash_bwd_dq and flash_bwd_dkv
+    against their bf16 plain versions (forward: 64-key tiles, as the
+    kernel), on BWD_CASES in bf16, the backward on the kernel's own out
+    and lse.  Each output: max abs error <= BF16_ULP * max |plain| and at
+    most MISMATCH_SHARE of its elements not bit-equal; lse within
+    LSE_RTOL.  A planted fault — P unrounded before PV in the forward,
+    dS / dS^T / P^T unrounded in the backward — must fail that gate.
+    Then the bf16 kernels against the fp32 kernels on the same
+    (bf16-valued) inputs: out within 2^-8 * (sum_j P_ij |V_j| + |out|)
+    elementwise (the rounding of P and of the output, at most half a
+    bf16 ulp each, plus 1e-5 of the first term for fp32 order), lse
+    within LSE_RTOL, and each gradient within BF16_VS_FP32 of the fp32
+    one in norm (two roundings of at most 2^-8 each, with margin)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    rng = torch.Generator(device=dev).manual_seed(SEED + 7)
+    bf16 = torch.bfloat16
+    cases, faults, vs_fp32 = [], [], []
+    errs = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
+    for name, B, H, Sq, Sk, D, causal, lens in BWD_CASES:
+        q, k, v, dout = (torch.randn(B, H, S, D, generator=rng,
+                                     device=dev).to(bf16)
+                         for S in (Sq, Sk, Sk, Sq))
+        f = [t.float() for t in (q, k, v, dout)]
+        kl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        scale = D ** -0.5
+        out, lse = fa.flash_attention_fwd(q, k, v, causal, scale, kl)
+        want_out, want_lse = fa.flash_attention_fwd_bf16_reference(
+            q, k, v, causal, scale, kl)
+        grads = fa.flash_attention_bwd(q, k, v, kl, out, lse, dout, causal,
+                                       scale)
+        want = fa.flash_attention_bwd_reference(q, k, v, kl, out, lse, dout,
+                                                causal, scale)
+        moved_out = fa.flash_attention_fwd_reference(
+            f[0], f[1], f[2], causal, scale, kl)[0].to(bf16)
+        moved = _moved_bwd(fa, q, k, v, kl, out, lse, dout, causal, scale)
+        out32, lse32 = fa.flash_attention_fwd(f[0], f[1], f[2], causal,
+                                              scale, kl)
+        grads32 = fa.flash_attention_bwd(f[0], f[1], f[2], kl, out32, lse32,
+                                         f[3], causal, scale)
+        pv = fa.reference_attention(f[0], f[1], f[2].abs(), causal, scale,
+                                    k_lengths=kl)
+        torch.cuda.synchronize()
+        live = want_lse < 1e29
+        if not bool((lse[~live] == -fa.NEG_INF).all()):
+            raise AssertionError(f"{name}: a fully masked row's bf16 lse is "
+                                 "not +1e30")
+        if 0 in lens and not (bool((out[lens.index(0)] == 0).all())
+                              and bool((grads[0][lens.index(0)] == 0).all())):
+            raise AssertionError(f"{name}: a fully masked row's bf16 out or "
+                                 "dQ is not 0")
+        lse_rel = float(((lse - want_lse).abs()
+                         / want_lse.abs().clamp_min(1e-30))[live].max())
+        rows = [("flash_fwd", "out", out, want_out, moved_out)] + [
+            (kernel, what, g, w, m) for kernel, what, g, w, m in zip(
+                ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dkv"),
+                ("dq", "dk", "dv"), grads, want, moved)]
+        for kernel, what, got, plain, bad in rows:
+            gate = _bf16_gate(got, plain)
+            cases.append({"kernel": kernel + "_bf16", "case": name,
+                          "what": what, **gate})
+            errs[kernel].append(gate["max_abs_err"])
+            planted = _bf16_gate(got, bad)
+            faults.append({"kernel": kernel + "_bf16", "case": name,
+                           "what": what, "mismatch_share":
+                           planted["mismatch_share"], "max_abs_err":
+                           planted["max_abs_err"],
+                           "caught": not planted["ok"]})
+        cases.append({"kernel": "flash_fwd_bf16", "case": name, "what": "lse",
+                      "rel_err": lse_rel, "ok": lse_rel <= LSE_RTOL})
+        out_bound = 2.0 ** -8 * (pv + out32.abs()) + 1e-5 * pv
+        lse32_rel = float(((lse - lse32).abs()
+                           / lse32.abs().clamp_min(1e-30))[live].max())
+        grad_rel = [float((g.float() - g32).norm() / g32.norm())
+                    for g, g32 in zip(grads, grads32)]
+        vs_fp32.append({
+            "case": name,
+            "out_err_over_bound": float(((out.float() - out32).abs()
+                                         / out_bound.clamp_min(1e-30)).max()),
+            "lse_rel_err": lse32_rel, "grad_norm_rel_err": dict(
+                zip(("dq", "dk", "dv"), grad_rel)),
+            "ok": bool(((out.float() - out32).abs() <= out_bound).all())
+            and lse32_rel <= LSE_RTOL
+            and max(grad_rel) <= BF16_VS_FP32})
+    emit({"phase": "bf16_parity", "tolerance": (
+              f"max abs err <= {BF16_ULP} * max |plain| and at most "
+              f"{MISMATCH_SHARE} of the elements not bit-equal; lse "
+              f"rel err <= {LSE_RTOL}"),
+          "cases": cases, "planted_rounding_faults": faults,
+          "vs_fp32_kernels": vs_fp32,
+          "vs_fp32_tolerance": (
+              "out: |bf16 - fp32| <= 2^-8 * (P|V| + |out|) + 1e-5 * P|V| "
+              f"elementwise; lse rel <= {LSE_RTOL}; grads: |bf16 - fp32| "
+              f"<= {BF16_VS_FP32} * |fp32| in norm")})
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"bf16 parity beyond its bound: {bad}")
+    missed = [c for c in faults if not c["caught"]]
+    if missed:
+        raise AssertionError(f"a planted rounding fault passed the gate: "
+                             f"{missed}")
+    bad = [c for c in vs_fp32 if not c["ok"]]
+    if bad:
+        raise AssertionError(f"bf16 kernels beyond their bound against the "
+                             f"fp32 kernels: {bad}")
+    return {k: max(v) for k, v in errs.items()}
+
+
 # -- phase 3 --------------------------------------------------------------
 
 def make_requests(serving, np):
@@ -435,7 +602,7 @@ def phase_main_path(torch, np):
     loop = serving.ContinuousBatchingLoop(model, cfg, pool,
                                           max_batch=MAX_BATCH)
     torch.cuda.synchronize()
-    fa.flash_attention.launches = 0
+    fa.reset_launches()
     pa.reset_launches()
     t0 = time.perf_counter()
     results = loop.run(reqs)
@@ -720,7 +887,7 @@ def _counted_run(torch, serving, model, cfg, reqs, dtype="float32", **kw):
     loop = serving.ContinuousBatchingLoop(model, cfg, pool,
                                           max_batch=MAX_BATCH, **kw)
     torch.cuda.synchronize()
-    fa.flash_attention.launches = 0
+    fa.reset_launches()
     pa.reset_launches()
     t0 = time.perf_counter()
     results = loop.run(reqs)
@@ -1053,7 +1220,7 @@ def _lc_counted(torch, serving, model, cfg, reqs, dtype="float32", **kw):
     loop = serving.ContinuousBatchingLoop(model, cfg, pool,
                                           max_batch=MAX_BATCH, **kw)
     torch.cuda.synchronize()
-    fa.flash_attention.launches = 0
+    fa.reset_launches()
     pa.reset_launches()
     t0 = time.perf_counter()
     results = loop.run(reqs)
@@ -1419,12 +1586,6 @@ def _flash_counts(fa):
             "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
 
 
-def _zero_flash_counts(fa):
-    fa.flash_attention.launches = 0
-    fa.flash_bwd_dq.launches = 0
-    fa.flash_bwd_dkv.launches = 0
-
-
 def build_training(fluid):
     from paddle_tpu_torch.models.transformer import (
         TransformerConfig,
@@ -1467,7 +1628,7 @@ def phase_training(torch, np):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _zero_flash_counts(fa)
+    fa.reset_launches()
     losses, step_s = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -1597,6 +1758,384 @@ def _card_vs_cpu(torch, np, fluid, main, spec, params_grads, init_state):
     if (not loss_rel <= LOSS_RTOL or not worst <= 1.0
             or not worst_rel <= GRAD_NORM_RTOL):
         raise AssertionError(f"card vs CPU beyond tolerance: {out}")
+    return out
+
+
+# -- phase 4b: bench.py's Transformer under bf16 AMP -----------------------
+
+# bench.py:180-197: vocab 32000, flash attention, fuse_qkv and the
+# config's dropout of 0.1, batch 32 x 256, Momentum as in phase 4; its two
+# AMP tiers, BENCH_AMP "1" (bf16 matmul operands, fp32 outputs) and "keep"
+# (bf16 outputs: Q/K/V reach the flash kernels in bf16)
+BENCH_CFG = dict(src_vocab_size=32000, trg_vocab_size=32000, max_length=256,
+                 use_flash_attention=True, fuse_qkv=True)
+AMP_TIERS = {"amp1": False, "keep": True}
+# AMP card vs CPU (one batch-2 step, dropout 0).  The loss: two bf16 ulps
+# (under keep it is bf16).  The gradients: bf16 activations round after
+# other summation orders on the two sides, and a ReLU input within a
+# rounding of 0 takes the other branch (on the CPU against the JAX package
+# 8 of 4096 inputs of one layer did, moving its gradients by 9% in norm),
+# so single leaves move by tens of percent where their gradient nearly
+# cancels (a cross-attention q bias: 60% on the card); the gate holds the
+# median leaf and all leaves together, in norm, relative to the CPU's
+AMP_LOSS_RTOL = 2.0 ** -6
+AMP_GRAD_NORM_RTOL = 0.1
+# each flash call of the keep step against the plain versions: at the
+# model's activations dS nearly cancels, fp32 order noise is larger
+# against the result's ulp, and up to 0.45% of dQ flipped on the card;
+# the moved rounding point flipped 31-46%
+MODEL_MISMATCH_SHARE = 0.05
+DROPOUT_P = 0.1
+
+
+def build_bench_transformer(fluid, **over):
+    """Under fresh name counters, so that every build names its vars
+    alike and one build's state loads into another."""
+    from paddle_tpu_torch.core.framework import unique_name_guard
+    from paddle_tpu_torch.models.transformer import (
+        TransformerConfig,
+        transformer,
+    )
+
+    main, startup = fluid.Program(), fluid.Program()
+    with unique_name_guard(), fluid.program_guard(main, startup):
+        spec = transformer(TransformerConfig(**BENCH_CFG, **over))
+        _, params_grads = fluid.optimizer.MomentumOptimizer(
+            learning_rate=LR, momentum=MOMENTUM).minimize(spec.loss)
+    return main, startup, spec, params_grads
+
+
+def _flash_counts_by_dtype(fa):
+    return {"flash_fwd": dict(fa.flash_attention.launches_by_dtype),
+            "flash_bwd_dq": dict(fa.flash_bwd_dq.launches_by_dtype),
+            "flash_bwd_dkv": dict(fa.flash_bwd_dkv.launches_by_dtype)}
+
+
+def phase_amp_training(torch, np):
+    """bench.py's Transformer at full width through the fluid entry
+    points, ten steps on one fixed 32 x 256 batch under each AMP tier
+    (``fluid.enable_amp("bfloat16")`` and ``keep_output=True``), from one
+    startup state.  The flash counters, zeroed before each tier's steps,
+    must read 18 per step for each kernel in the tier's dtype (fp32 under
+    amp1, bf16 under keep) and 0 in the other; losses finite and falling.
+    Ten steps at lr 1e-4 move the loss by less than dropout's step-to-step
+    noise, and under keep the loss is bf16 (an ulp of 0.0625 at 10.4); so
+    the fall is read without dropout: the startup state and the state
+    after the steps each run one step of the dropout-0 build under the
+    same tier, and the mean of its per-token costs over the non-pad tokens
+    (float64 on the host, from bf16 costs widened exactly under keep) must
+    be lower after.
+    One more step fetches the fused_attention inputs and the layer_norm
+    outputs: bf16 under keep, fp32 under amp1.  Then keep tier card
+    against CPU, and dropout on the card."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    main, startup, spec, params_grads = build_bench_transformer(fluid)
+    cfg = spec.extras["config"]
+    n_attn = 3 * cfg.n_layer
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    init_state = _persistables(startup, scope)
+    del scope
+    batch = spec.synthetic_batch(TRAIN_BATCH, seed=SEED)
+    tokens = TRAIN_BATCH * cfg.max_length
+    ops = main.desc.block(0).ops
+    # the per-token cost [B, S]: the squeeze of the loss op's output
+    cost = next(op.output("Out")[0] for op in ops if op.type == "squeeze2")
+    non_pad = (batch[spec.feed_names[2]] != cfg.pad_idx).astype(np.float64)
+    eval_main, _, _, _ = build_bench_transformer(fluid, dropout=0.0)
+    eval_cost = next(op.output("Out")[0] for op in eval_main.desc.block(0).ops
+                     if op.type == "squeeze2")
+
+    def eval_loss(state):
+        """Mean per-token cost of one dropout-free step from ``state``."""
+        scope = fluid.Scope()
+        exe.load_state(state, scope)
+        per_token, = exe.run(eval_main, feed=batch, fetch_list=[eval_cost],
+                             scope=scope)
+        return float((per_token * non_pad).sum() / non_pad.sum())
+
+    acts = {"fused_attention_inputs": [
+        n for op in ops if op.type == "fused_attention"
+        for slot in ("Q", "K", "V") for n in op.input(slot)],
+        "layer_norm_outputs": [op.output("Y")[0] for op in ops
+                               if op.type == "layer_norm"]}
+    tiers, launches = {}, {}
+    for tier, keep in AMP_TIERS.items():
+        dtype, other = (("bfloat16", "float32") if keep
+                        else ("float32", "bfloat16"))
+        fluid.enable_amp("bfloat16", keep_output=keep)
+        try:
+            scope = fluid.Scope()
+            exe.load_state(init_state, scope)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launches()
+            losses, token_means, step_s = [], [], []
+            for _ in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                loss, per_token = exe.run(main, feed=batch,
+                                          fetch_list=[spec.loss, cost],
+                                          scope=scope)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                losses.append(float(loss.reshape(-1)[0]))
+                token_means.append(float((per_token * non_pad).sum()
+                                         / non_pad.sum()))
+            counts = _flash_counts_by_dtype(fa)
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            trained = _persistables(startup, scope)
+            evals = [eval_loss(init_state), eval_loss(trained)]
+            step_med = statistics.median(step_s)
+            trace = _trace_training(torch, exe, main, spec, batch, scope,
+                                    step_med)
+            vals = exe.run(main, feed=batch, fetch_list=sum(acts.values(),
+                                                            []),
+                           scope=scope, return_numpy=False)
+            act_dtypes = {}
+            for what, names in acts.items():
+                act_dtypes[what] = sorted({str(vals.pop(0).dtype)
+                                           for _ in names})
+        finally:
+            fluid.disable_amp()
+        want = {k: {dtype: n_attn * TRAIN_STEPS, other: 0}
+                for k in FLASH_KERNELS}
+        if counts != want:
+            raise AssertionError(f"{tier}: launches {counts} != {want}")
+        if (not all(np.isfinite(losses + token_means + evals))
+                or not evals[1] < evals[0]):
+            raise AssertionError(f"{tier}: losses not finite and falling: "
+                                 f"{losses}, without dropout {evals}")
+        if any(d != [f"torch.{dtype}"] for d in act_dtypes.values()):
+            raise AssertionError(f"{tier}: activation dtypes {act_dtypes}, "
+                                 f"want torch.{dtype}")
+        launches[tier] = {k: v[dtype] for k, v in counts.items()}
+        tiers[tier] = {
+            "enable_amp": {"dtype": "bfloat16", "keep_output": keep},
+            "losses": losses, "per_token_cost_means": token_means,
+            "dropout_free_loss_before_after": evals,
+            "step_s": step_s, "step_ms_median": 1e3 * step_med,
+            "tokens_per_s": tokens / step_med, "peak_alloc_gib": peak_gib,
+            "launches": counts,
+            "launches_per_step": {k: v[dtype] // TRAIN_STEPS
+                                  for k, v in counts.items()},
+            "activation_dtypes": act_dtypes, "trace": trace}
+    emit({"phase": "amp_training", "config": dict(cfg.__dict__),
+          "optimizer": {"type": "momentum", "lr": LR, "momentum": MOMENTUM},
+          "batch": [TRAIN_BATCH, cfg.max_length],
+          "params": sum(int(np.prod(p.shape)) for p, _ in params_grads),
+          "main_ops": len(ops), "tiers": tiers})
+    emit({"phase": "amp_card_vs_cpu",
+          "tiers": {tier: _amp_card_vs_cpu(torch, np, fluid, tier)
+                    for tier in AMP_TIERS},
+          "dropout_on_card": _dropout_on_card(torch)})
+    return launches, batch, cfg
+
+
+@contextlib.contextmanager
+def _recording_flash(fa, calls):
+    """Record every flash forward and backward call (inputs and outputs)
+    the block runner makes while the context is open."""
+    fwd, bwd = fa.flash_attention_fwd, fa.flash_attention_bwd
+
+    def rec_fwd(q, k, v, causal, scale, k_lengths=None, need_lse=True):
+        out, lse = fwd(q, k, v, causal, scale, k_lengths, need_lse)
+        calls.append(("fwd", (q, k, v, causal, scale, k_lengths),
+                      (out, lse)))
+        return out, lse
+
+    def rec_bwd(q, k, v, k_lengths, out, lse, dout, causal, scale):
+        grads = bwd(q, k, v, k_lengths, out, lse, dout, causal, scale)
+        calls.append(("bwd", (q, k, v, k_lengths, out, lse, dout, causal,
+                              scale), grads))
+        return grads
+
+    fa.flash_attention_fwd, fa.flash_attention_bwd = rec_fwd, rec_bwd
+    try:
+        yield
+    finally:
+        fa.flash_attention_fwd, fa.flash_attention_bwd = fwd, bwd
+
+
+@contextlib.contextmanager
+def _moved_rounding_point(fa):
+    """The planted fault: the bf16 backward with dS, dS^T and P^T left
+    unrounded before their products (``_moved_bwd``), on the card."""
+    bwd = fa.flash_attention_bwd
+
+    def moved(q, k, v, k_lengths, out, lse, dout, causal, scale):
+        return _moved_bwd(fa, q, k, v, k_lengths, out, lse, dout, causal,
+                          scale)
+
+    fa.flash_attention_bwd = moved
+    try:
+        yield
+    finally:
+        fa.flash_attention_bwd = bwd
+
+
+def _calls_vs_plain(torch, fa, calls):
+    """Each recorded bf16 flash call of a step against the bf16 plain
+    version on the CPU, on the same inputs: max abs error <= BF16_ULP *
+    max |plain|, at most MODEL_MISMATCH_SHARE of the elements not
+    bit-equal, lse within LSE_RTOL."""
+    worst = {"out": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    share = dict(worst)
+    lse_rel, ok = 0.0, True
+    for kind, args, outs in calls:
+        cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+        if kind == "fwd":
+            q, k, v, causal, scale, kl = cpu
+            want = fa.flash_attention_fwd_bf16_reference(q, k, v, causal,
+                                                         scale, kl)
+            pairs = [("out", outs[0].cpu(), want[0])]
+            live = want[1] < 1e29
+            lse_rel = max(lse_rel, float(
+                ((outs[1].cpu() - want[1]).abs()
+                 / want[1].abs().clamp_min(1e-30))[live].max()))
+        else:
+            want = fa.flash_attention_bwd_reference(*cpu)
+            pairs = [(n, g.cpu(), w) for n, g, w in zip(("dq", "dk", "dv"),
+                                                        outs, want)]
+        for what, got, plain in pairs:
+            gate = _bf16_gate(got, plain)
+            worst[what] = max(worst[what],
+                              gate["max_abs_err"] / gate["bound"])
+            share[what] = max(share[what], gate["mismatch_share"])
+            ok = (ok and gate["max_abs_err"] <= gate["bound"]
+                  and gate["mismatch_share"] <= MODEL_MISMATCH_SHARE)
+    return {"calls": len(calls), "max_err_over_bound": worst,
+            "max_mismatch_share": share, "lse_rel_err": lse_rel,
+            "ok": ok and lse_rel <= LSE_RTOL}
+
+
+def _amp_card_vs_cpu(torch, np, fluid, tier):
+    """Bench's Transformer with dropout 0 (the card's and the CPU's
+    generators give different streams) under one AMP tier, one
+    PARITY_BATCH step from one startup state on the card and on a CPUPlace
+    executor: the loss within AMP_LOSS_RTOL, and the param@GRADs within
+    AMP_GRAD_NORM_RTOL of the CPU's in norm, at the median leaf and over
+    all leaves together.  Under keep, every flash call of the card's step
+    is also held against the bf16 plain versions on the CPU, on its own
+    inputs (``_calls_vs_plain``), and the card runs the step again with
+    one rounding point moved (``_moved_bwd``): the gate must fail it."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    keep = AMP_TIERS[tier]
+    main, startup, spec, params_grads = build_bench_transformer(fluid,
+                                                                dropout=0.0)
+    scope = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope)
+    init_state = _persistables(startup, scope)
+    batch = spec.synthetic_batch(PARITY_BATCH, seed=SEED + 1)
+    fetch = [spec.loss] + [g for _, g in params_grads]
+    runs = ("card", "cpu", "planted") if keep else ("card", "cpu")
+    got, calls = {}, {"card": [], "planted": []}
+    fluid.enable_amp("bfloat16", keep_output=keep)
+    try:
+        for run in runs:
+            exe = fluid.Executor(fluid.CPUPlace() if run == "cpu" else None)
+            scope = fluid.Scope()
+            exe.load_state(init_state, scope)
+            with contextlib.ExitStack() as stack:
+                if run == "planted":
+                    stack.enter_context(_moved_rounding_point(fa))
+                if run != "cpu":
+                    stack.enter_context(_recording_flash(fa, calls[run]))
+                got[run] = exe.run(main, feed=batch, fetch_list=fetch,
+                                   scope=scope)
+    finally:
+        fluid.disable_amp()
+    cpu = got["cpu"]
+    loss_cpu = float(cpu[0].reshape(-1)[0])
+    norms = [float(np.linalg.norm(b)) for b in cpu[1:]]
+
+    def gates(run):
+        vals = got[run]
+        loss_rel = abs(float(vals[0].reshape(-1)[0]) - loss_cpu) / abs(
+            loss_cpu)
+        diffs = [float(np.linalg.norm(a - b))
+                 for a, b in zip(vals[1:], cpu[1:])]
+        rels = sorted(((d / max(n, 1e-30), g.name, n / max(norms))
+                       for (_, g), d, n in zip(params_grads, diffs, norms)),
+                      reverse=True)
+        median = rels[len(rels) // 2][0]
+        joint = float(np.sqrt(sum(d * d for d in diffs))
+                      / np.sqrt(sum(n * n for n in norms)))
+        out = {"loss": float(vals[0].reshape(-1)[0]),
+               "loss_rel_err": loss_rel, "grad_norm_rel_err_median": median,
+               "grad_norm_rel_err_all_leaves": joint,
+               "top5_rel_err_name_norm_over_largest": rels[:5],
+               "ok": loss_rel <= AMP_LOSS_RTOL
+               and median <= AMP_GRAD_NORM_RTOL
+               and joint <= AMP_GRAD_NORM_RTOL}
+        if keep:
+            out["flash_calls_vs_plain"] = _calls_vs_plain(torch, fa,
+                                                          calls[run])
+            out["ok"] = out["ok"] and out["flash_calls_vs_plain"]["ok"]
+        return out
+
+    out = {"batch": PARITY_BATCH, "dropout": 0.0, "loss_cpu": loss_cpu,
+           "tolerance": (f"loss rel <= {AMP_LOSS_RTOL}; grads |card - cpu| "
+                         f"<= {AMP_GRAD_NORM_RTOL} * |cpu| in norm, median "
+                         "leaf and all leaves together" + (
+                             "; each flash call of the step vs the bf16 "
+                             "plain versions on the CPU: max abs err <= "
+                             f"{BF16_ULP} * max |plain|, mismatch share <= "
+                             f"{MODEL_MISMATCH_SHARE}, lse rel <= "
+                             f"{LSE_RTOL}" if keep else "")),
+           "card": gates("card")}
+    if keep:
+        out["planted_moved_rounding"] = gates("planted")
+    if not out["card"]["ok"]:
+        raise AssertionError(f"{tier} card vs CPU beyond tolerance: {out}")
+    if keep and out["planted_moved_rounding"]["ok"]:
+        raise AssertionError(f"a moved bf16 rounding point passed: {out}")
+    return out
+
+
+def _dropout_on_card(torch):
+    """The dropout rule on the card at the main path's activation shape
+    (bf16 [32, 256, 512]), from the executor's kind of generator: keep
+    fraction within 5 sigma of 1 - p, gradient g * mask exactly, equal
+    masks from equal seeds and other masks from another seed."""
+    from paddle_tpu_torch.core.compiler import LoweringContext
+    from paddle_tpu_torch.core.registry import OpRegistry
+
+    dev = torch.device("cuda")
+    rule = OpRegistry.get("dropout").lower
+    attrs = {"dropout_prob": DROPOUT_P, "is_test": False}
+
+    def draw(seed, x):
+        ctx = LoweringContext({}, dev, torch.Generator(device=dev)
+                              .manual_seed(seed))
+        return rule(ctx, {"X": [x]}, attrs)
+
+    x = torch.randn(TRAIN_BATCH, 256, 512, device=dev).to(
+        torch.bfloat16).requires_grad_()
+    outs = draw(SEED, x)
+    mask = outs["Mask"][0].bool()
+    n = mask.numel()
+    frac = float(mask.float().mean())
+    sigma = (DROPOUT_P * (1 - DROPOUT_P) / n) ** 0.5
+    g = torch.randn(x.shape, device=dev).to(torch.bfloat16)
+    grad, = torch.autograd.grad(outs["Out"][0], x, g)
+    out = {"p": DROPOUT_P, "elements": n, "keep_fraction": frac,
+           "five_sigma": 5 * sigma,
+           "grad_is_g_times_mask": bool(torch.equal(
+               grad, torch.where(mask, g, torch.zeros_like(g)))),
+           "out_dtype": str(outs["Out"][0].dtype),
+           "same_seed_same_mask": bool(torch.equal(
+               draw(SEED, x.detach())["Mask"][0], outs["Mask"][0])),
+           "other_seed_other_mask": not bool(torch.equal(
+               draw(SEED + 1, x.detach())["Mask"][0], outs["Mask"][0]))}
+    if not (abs(frac - (1 - DROPOUT_P)) <= 5 * sigma
+            and out["grad_is_g_times_mask"] and out["same_seed_same_mask"]
+            and out["other_seed_other_mask"]
+            and out["out_dtype"] == "torch.bfloat16"):
+        raise AssertionError(f"dropout on the card: {out}")
     return out
 
 
@@ -2175,16 +2714,19 @@ def _row_tiling(torch, rng, lens):
             "kv_once_bound_ms": 1e3 * kv_bytes / HBM_BYTES_PER_S}
 
 
-def phase_train_timing(torch, bwd_err, launches, cfg, batch):
+def phase_train_timing(torch, bwd_err, launches, cfg, batch, bf16=False):
     """The two backward kernels, and flash_fwd with its lse output, at the
     training shape of the decoder's causal self-attention: [B, H, S, D] =
     [TRAIN_BATCH, 8, 256, 64], k_lengths from the fixed batch's target
-    rows.  Bounds count each input read once (K and V rows up to each
-    row's length) and each output written once, and the fp32 flops of the
-    visible (query, key) pairs: 4*D forward, 6*D dq (S, dP, dQ), 8*D dkv
-    (S, dP, dK, dV).  The plain time of both backward rows is
-    flash_attention_bwd_reference, which computes dQ, dK and dV together;
-    so is the library call, SDPA's backward through a boolean mask."""
+    rows; fp32, or with ``bf16`` the bf16 entries on bf16 tensors.  Bounds
+    count each input read once (K and V rows up to each row's length, at
+    the element size; lse, D and the lengths in 4 bytes) and each output
+    written once, and the flops of the visible (query, key) pairs: 4*D
+    forward, 6*D dq (S, dP, dQ), 8*D dkv (S, dP, dK, dV), over the fp32
+    peak or, for bf16, the dense bf16 tensor peak.  The plain time of
+    both backward rows is flash_attention_bwd_reference, which computes
+    dQ, dK and dV together; so is the library call, SDPA's backward
+    through a boolean mask (in the same dtype)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -2194,9 +2736,14 @@ def phase_train_timing(torch, bwd_err, launches, cfg, batch):
     B, H, S = TRAIN_BATCH, cfg.n_head, cfg.max_length
     D = cfg.d_model // H
     scale = D ** -0.5
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    suffix, e = ("_bf16", 2) if bf16 else ("", 4)
+    peak = BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S
+    fwd_plain = (fa.flash_attention_fwd_bf16_reference if bf16
+                 else fa.flash_attention_fwd_reference)
     lens = [int(n) for n in (batch["trg_word"] != cfg.pad_idx).sum(axis=1)]
-    q, k, v, dout = (torch.randn(B, H, S, D, generator=rng, device=dev)
-                     for _ in range(4))
+    q, k, v, dout = (torch.randn(B, H, S, D, generator=rng,
+                                 device=dev).to(dtype) for _ in range(4))
     kl = torch.tensor(lens, dtype=torch.int32, device=dev)
     pos = torch.arange(S, device=dev)
     mask = ((pos[None, :] < kl[:, None].long())[:, None, None, :]
@@ -2204,7 +2751,7 @@ def phase_train_timing(torch, bwd_err, launches, cfg, batch):
     pairs = H * sum(sum(min(n, i + 1) for i in range(S)) for n in lens)
     full, kv_rows, rows = B * H * S * D, H * D * sum(lens), B * H * S
     out, lse = fa.flash_attention_fwd(q, k, v, True, scale, kl)
-    dvec = (dout * out).sum(dim=-1)
+    dvec = (dout.float() * out.float()).sum(dim=-1)
     plain_bwd = device_ms(torch, lambda: fa.flash_attention_bwd_reference(
         q, k, v, kl, out, lse, dout, True, scale))
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
@@ -2214,32 +2761,36 @@ def phase_train_timing(torch, bwd_err, launches, cfg, batch):
         sdpa_out, (qg, kg, vg), dout, retain_graph=True))
     shape = {"B": B, "H": H, "S": S, "D": D, "causal": True,
              "k_lengths": lens}
+    shape["dtype"] = str(dtype).removeprefix("torch.")
     rows_out = [
-        _row("flash_bwd_dq", "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
+        _row("flash_bwd_dq" + suffix,
+             "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
              "paddle_tpu/kernels/flash_attention.py:391",
              launches["flash_bwd_dq"], bwd_err["flash_bwd_dq"],
              device_ms(torch, lambda: fa.flash_bwd_dq(
                  q, k, v, dout, lse, dvec, kl, True, scale)),
-             plain_bwd, 4 * (3 * full + 2 * kv_rows + 2 * rows + B),
-             6 * D * pairs, sdpa_bwd, shape),
-        _row("flash_bwd_dkv", "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
+             plain_bwd, e * (3 * full + 2 * kv_rows) + 4 * (2 * rows + B),
+             6 * D * pairs, sdpa_bwd, shape, peak),
+        _row("flash_bwd_dkv" + suffix,
+             "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
              "paddle_tpu/kernels/flash_attention.py:409",
              launches["flash_bwd_dkv"], bwd_err["flash_bwd_dkv"],
              device_ms(torch, lambda: fa.flash_bwd_dkv(
                  q, k, v, dout, lse, dvec, kl, True, scale)),
-             plain_bwd, 4 * (4 * full + 2 * kv_rows + 2 * rows + B),
-             8 * D * pairs, sdpa_bwd, shape)]
-    fwd = _row("flash_fwd", "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
+             plain_bwd, e * (4 * full + 2 * kv_rows) + 4 * (2 * rows + B),
+             8 * D * pairs, sdpa_bwd, shape, peak)]
+    fwd = _row("flash_fwd" + suffix,
+               "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
                "paddle_tpu/kernels/flash_attention.py:317",
                launches["flash_fwd"], bwd_err["flash_fwd"],
                device_ms(torch, lambda: fa.flash_attention_fwd(
                    q, k, v, True, scale, kl)),
-               device_ms(torch, lambda: fa.flash_attention_fwd_reference(
-                   q, k, v, True, scale, kl)),
-               4 * (2 * full + 2 * kv_rows + rows + B), 4 * D * pairs,
+               device_ms(torch, lambda: fwd_plain(q, k, v, True, scale, kl)),
+               e * (2 * full + 2 * kv_rows) + 4 * (rows + B), 4 * D * pairs,
                device_ms(torch, lambda: F.scaled_dot_product_attention(
-                   q, k, v, attn_mask=mask, scale=scale)), shape)
-    emit({"phase": "train_timing", "method": "CUDA events, median of 30 "
+                   q, k, v, attn_mask=mask, scale=scale)), shape, peak)
+    emit({"phase": "train_timing" + suffix,
+          "method": "CUDA events, median of 30 "
           "after 5 warm-up calls, queued behind torch.cuda._sleep",
           "shape": shape, "library_call": "SDPA with a boolean causal+"
           "padding mask (forward); its backward through autograd.grad, one "
@@ -2251,9 +2802,9 @@ def phase_train_timing(torch, bwd_err, launches, cfg, batch):
           "rows": [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}
                    for r in rows_out]})
-    for r in rows_out:
+    for r in rows_out + [fwd]:
         r.pop("shape")
-    return rows_out
+    return fwd, rows_out
 
 
 def _conv_stats_work(N, H, W, C, Fo, K, s, p):
@@ -2368,9 +2919,9 @@ def phase_conv_timing(torch, conv_err, launches, by_shape, trace):
 
 
 def _row(name, source, replaces, launches, err, ms, plain_ms, nbytes, flops,
-         library_ms, shape):
+         library_ms, shape, flops_per_s=FP32_FLOPS_PER_S):
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * flops / FP32_FLOPS_PER_S
+    t_ops = 1e3 * flops / flops_per_s
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
@@ -2396,11 +2947,14 @@ def main() -> int:
     spec_err = phase_spec_parity(torch)
     lc_err = phase_longctx_parity(torch)
     bwd_err = phase_bwd_parity(torch)
+    bf16_err = phase_bf16_parity(torch)
     conv_err = phase_conv_parity(torch, fluid)
     serve_launches, reqs = phase_main_path(torch, np)
     spec_launches, spec_reqs = phase_spec_main_path(torch, np)
     lc_launches = phase_longctx(torch, np)
     train_launches, batch, cfg = phase_training(torch, np)
+    torch.cuda.empty_cache()
+    amp_launches, amp_batch, amp_cfg = phase_amp_training(torch, np)
     torch.cuda.empty_cache()
     conv_launches, by_shape, trace = phase_resnet(torch, np, fluid)
     kernels = phase_timing(torch, np, reqs, parity_err, serve_launches)
@@ -2408,7 +2962,21 @@ def main() -> int:
                                  spec_launches)
     lc_rows, lc_flat = phase_longctx_timing(torch, np, lc_err, lc_launches)
     kernels += lc_rows
-    kernels += phase_train_timing(torch, bwd_err, train_launches, cfg, batch)
+    # the fp32 backward rows run in the fp32 phase and under amp1
+    fp32_bwd_launches = {k: train_launches[k] + amp_launches["amp1"][k]
+                         for k in FLASH_KERNELS}
+    _, bwd_rows = phase_train_timing(torch, bwd_err, fp32_bwd_launches, cfg,
+                                     batch)
+    for r in bwd_rows:
+        kernel = r["name"]
+        r["launches_by_path"] = {"training": train_launches[kernel],
+                                 "training_amp1": amp_launches["amp1"][kernel]}
+    kernels += bwd_rows
+    bf16_fwd, bf16_bwd = phase_train_timing(
+        torch, bf16_err, amp_launches["keep"], amp_cfg, amp_batch, bf16=True)
+    for r in [bf16_fwd] + bf16_bwd:
+        r["launches_by_path"] = {"training_amp_keep": r["launches"]}
+    kernels += [bf16_fwd] + bf16_bwd
     kernels += phase_conv_timing(torch, conv_err, conv_launches, by_shape,
                                  trace)
     # flash_fwd runs on every path and paged_decode on both fp32 serving
@@ -2418,7 +2986,8 @@ def main() -> int:
                "int8_serving": spec_launches["int8"]["flash_fwd"],
                "long_context_serving": sum(
                    a["flash_fwd"] for a in lc_launches.values()),
-               "training": train_launches["flash_fwd"]}
+               "training": train_launches["flash_fwd"],
+               "training_amp1": amp_launches["amp1"]["flash_fwd"]}
     kernels[0]["launches"] = sum(by_path.values())
     kernels[0]["launches_by_path"] = by_path
     kernels[0]["max_abs_err"] = max(parity_err["flash_fwd"],

@@ -18,6 +18,10 @@ It is used as fluid is::
     exe.run(startup)
     exe.run(main, feed=..., fetch_list=[loss])
 
+``fluid.enable_amp("bfloat16")`` computes the matmuls in bf16 and casts
+their outputs back to fp32; ``enable_amp("bfloat16", keep_output=True)``
+keeps them bf16 (``core/amp.py``).  With no call the port is fp32.
+
 The package imports ``torch`` and never ``jax`` or ``paddle_tpu``.  Every
 Pallas kernel on a ported path is a CUDA C++ kernel written for
 ``sm_90a`` (``kernels/csrc``), compiled by ``nvcc`` at first use
@@ -27,6 +31,7 @@ wrapper takes its plain PyTorch version.
 """
 
 from . import layers, ops, optimizer  # noqa: F401  (ops registers the rules)
+from .core.amp import disable_amp, enable_amp
 from .core.executor import Executor
 from .core.framework import (Program, default_main_program,
                              default_startup_program, program_guard)
@@ -37,5 +42,5 @@ from .param_attr import ParamAttr
 
 __all__ = ["CPUPlace", "CUDAPlace", "Executor", "ParamAttr", "Program",
            "Scope", "default_main_program", "default_startup_program",
-           "global_scope", "layers", "optimizer", "program_guard",
-           "resolve_device"]
+           "disable_amp", "enable_amp", "global_scope", "layers",
+           "optimizer", "program_guard", "resolve_device"]

@@ -10,8 +10,8 @@ JAX executor keeps its PRNG key there.
 
 ``Executor()`` runs on the card and raises without one; ``CPUPlace()``
 asks for the host, where every kernel wrapper takes its plain version.
-Not ported: ``run_steps``, buffer donation, py_reader feeds, LoD feeds,
-AMP.
+Not ported: ``run_steps``, buffer donation, py_reader feeds, LoD feeds.
+AMP is the process-wide policy of ``core/amp.py``, read by the op rules.
 """
 
 from __future__ import annotations
@@ -129,6 +129,15 @@ class Executor:
             if name in env:
                 scope.set_var(name, env[name])
         fetches = [ctx.lookup(n) for n in fetch_names]
-        if return_numpy:
-            return [np.asarray(t.detach().cpu()) for t in fetches]
-        return fetches
+        if not return_numpy:
+            return fetches
+        # host arrays come back in the declared dtype, as the JAX
+        # executor's fetches do (an amp keep_output activation is bf16 at
+        # run time, fp32 in its desc; numpy has no bfloat16)
+        out = []
+        for name, t in zip(fetch_names, fetches):
+            vd = block.vars.get(name)
+            if vd is not None and vd.type == VarType.LOD_TENSOR:
+                t = t.to(dtype_to_torch(vd.dtype))
+            out.append(np.asarray(t.detach().cpu()))
+        return out

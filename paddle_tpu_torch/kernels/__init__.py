@@ -5,6 +5,7 @@ version and a launch counter.
 | ------------------------------------------------- | ---------------------- |
 | flash_attention.py `_fwd_call` (with/without lse) | csrc/flash_fwd.cu      |
 | flash_attention.py `_bwd_calls` dq and dkv        | csrc/flash_bwd.cu      |
+| (both: fp32 and bf16 operands)                    | (`*_f32`, `*_bf16`)    |
 | paged_attention.py `_paged_call`: Sq=1 and verify | csrc/paged_decode.cu   |
 | (Sq>1, q_lengths), fp32 and int8 pages            | (four entries)         |
 | conv_epilogue.py `_conv_stats_kernel_inpad` and   | csrc/conv_epilogue.cu  |

@@ -14,10 +14,10 @@ from ..initializer import (ConstantInitializer, NormalInitializer,
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
-__all__ = ["accuracy", "conv_bn_add_act", "cross_entropy", "elementwise_add",
-           "elementwise_div", "elementwise_mul", "embedding", "fc",
-           "fused_attention", "layer_norm", "matmul", "pool2d", "relu",
-           "softmax", "softmax_with_cross_entropy", "topk"]
+__all__ = ["accuracy", "conv_bn_add_act", "cross_entropy", "dropout",
+           "elementwise_add", "elementwise_div", "elementwise_mul",
+           "embedding", "fc", "fused_attention", "layer_norm", "matmul",
+           "pool2d", "relu", "softmax", "softmax_with_cross_entropy", "topk"]
 
 
 def _pair(x, n=2):
@@ -228,6 +228,21 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
         outputs={"Y": [out], "Mean": [mean], "Variance": [var]},
         attrs={"begin_norm_axis": begin_norm_axis, "epsilon": epsilon})
     return helper.append_activation(out)
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    helper = LayerHelper("dropout", input=x, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference(DataType.UINT8,
+                                                     stop_gradient=True)
+    helper.append_op(
+        type="dropout", inputs={"X": [x]},
+        outputs={"Out": [out], "Mask": [mask]},
+        attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+               "seed": seed if seed is not None else 0,
+               "dropout_implementation": dropout_implementation})
+    return out
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,

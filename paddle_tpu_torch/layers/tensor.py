@@ -7,7 +7,8 @@ from ..core.proto import convert_dtype
 from ..layer_helper import LayerHelper
 
 __all__ = ["cast", "create_parameter", "fill_constant_batch_size_like",
-           "reduce_sum", "reshape", "scale", "squeeze", "transpose"]
+           "reduce_sum", "reshape", "scale", "split", "squeeze",
+           "transpose"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -78,6 +79,22 @@ def transpose(x, perm, name=None):
                      outputs={"Out": [out], "XShape": [xshape]},
                      attrs={"axis": list(perm)})
     return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    """``num_or_sections``: an int (that many equal parts) or a list of
+    part sizes along ``dim``; returns the list of parts."""
+    helper = LayerHelper("split", input=input, name=name)
+    if isinstance(num_or_sections, int):
+        num, sections = num_or_sections, []
+    else:
+        num, sections = 0, list(num_or_sections)
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(num or len(sections))]
+    helper.append_op(type="split", inputs={"X": [input]},
+                     outputs={"Out": outs},
+                     attrs={"num": num, "sections": sections, "axis": dim})
+    return outs
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,

@@ -6,8 +6,11 @@ through ``optimizer.minimize`` and ``Executor.run``.
 The builder makes the same layer calls in the same order as the JAX
 package's, so both give the same ProgramDesc.  Ported is the path with
 ``use_flash_attention=True``: one ``fused_attention`` op per attention,
-key padding as per-row lengths.  Asking for a part that is not ported
-(dropout, the bias-tensor attention, fused q/k/v projections, the
+key padding as per-row lengths; with ``fuse_qkv`` one [d, 3d] projection
+and a split for self-attention ([d, 2d] for cross-attention's k and v),
+and with ``dropout > 0`` the dropout ops after the embeddings, the
+attention output, the FFN's hidden layer and each sublayer's output.
+Asking for a part that is not ported (the bias-tensor attention, the
 unfused label-smoothing chain, recompute) raises NotImplementedError.
 The serving decoder (``serving/generate.py``) reads ``_sinusoid_table``.
 """
@@ -20,7 +23,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from .. import layers
-from ..initializer import NumpyArrayInitializer
+from ..initializer import NumpyArrayInitializer, XavierInitializer
 from ..param_attr import ParamAttr
 from .common import ModelSpec
 
@@ -60,10 +63,8 @@ def _sinusoid_table(max_len: int, d_model: int) -> np.ndarray:
 
 def _check_ported(cfg: TransformerConfig) -> None:
     missing = [what for what, on in (
-        ("dropout > 0 (the dropout op)", cfg.dropout),
         ("use_flash_attention=False (the bias-tensor attention)",
          not cfg.use_flash_attention),
-        ("fuse_qkv (the split op)", cfg.fuse_qkv),
         ("use_recompute (recompute_scope)", cfg.use_recompute),
         ("fuse_smooth_ce=False (one_hot / label_smooth)",
          not cfg.fuse_smooth_ce)) if on]
@@ -75,10 +76,12 @@ class _Builder:
     def __init__(self, cfg: TransformerConfig):
         self.cfg = cfg
 
-    def linear(self, x, d_in, d_out, name, shard=None, act=None, bias=True):
+    def linear(self, x, d_in, d_out, name, shard=None, act=None, bias=True,
+               initializer=None):
         cfg = self.cfg
-        w = layers.create_parameter([d_in, d_out], "float32",
-                                    attr=ParamAttr(name=f"{name}_w"))
+        w = layers.create_parameter(
+            [d_in, d_out], "float32",
+            attr=ParamAttr(name=f"{name}_w", initializer=initializer))
         if cfg.shard_weights and shard is not None:
             w.sharding = shard
         out = layers.matmul(x, w)
@@ -97,9 +100,23 @@ class _Builder:
         d, h = cfg.d_model, cfg.n_head
         dh = d // h
         tp = cfg.tp_axis
-        q = self.linear(q_in, d, d, f"{name}_q", shard=[None, tp])
-        k = self.linear(kv_in, d, d, f"{name}_k", shard=[None, tp])
-        v = self.linear(kv_in, d, d, f"{name}_v", shard=[None, tp])
+        # a fused projection keeps the unfused per-projection Xavier scale
+        # (fan_in = fan_out = d) and carries no tp annotation, as in
+        # paddle_tpu/models/transformer.py
+        proj_init = XavierInitializer(fan_in=d, fan_out=d)
+        if cfg.fuse_qkv and q_in is kv_in:
+            qkv = self.linear(q_in, d, 3 * d, f"{name}_qkv",
+                              initializer=proj_init)
+            q, k, v = layers.split(qkv, num_or_sections=3, dim=-1)
+        elif cfg.fuse_qkv:
+            q = self.linear(q_in, d, d, f"{name}_q", shard=[None, tp])
+            kv = self.linear(kv_in, d, 2 * d, f"{name}_kv",
+                             initializer=proj_init)
+            k, v = layers.split(kv, num_or_sections=2, dim=-1)
+        else:
+            q = self.linear(q_in, d, d, f"{name}_q", shard=[None, tp])
+            k = self.linear(kv_in, d, d, f"{name}_k", shard=[None, tp])
+            v = self.linear(kv_in, d, d, f"{name}_v", shard=[None, tp])
 
         def split_heads(x):
             x = layers.reshape(x, shape=[0, 0, h, dh])
@@ -108,6 +125,9 @@ class _Builder:
         q, k, v = split_heads(q), split_heads(k), split_heads(v)
         ctx = layers.fused_attention(q, k, v, causal=causal,
                                      k_lengths=k_lengths)
+        if cfg.dropout:
+            # on the attention output: the kernel keeps no weights to drop
+            ctx = layers.dropout(ctx, dropout_prob=cfg.dropout)
         ctx = layers.transpose(ctx, perm=[0, 2, 1, 3])
         ctx = layers.reshape(ctx, shape=[0, 0, d])
         return self.linear(ctx, d, d, f"{name}_o", shard=[tp, None])
@@ -117,18 +137,22 @@ class _Builder:
         tp = cfg.tp_axis
         hidden = self.linear(x, cfg.d_model, cfg.d_inner, f"{name}_in",
                              shard=[None, tp], act="relu")
+        if cfg.dropout:
+            hidden = layers.dropout(hidden, dropout_prob=cfg.dropout)
         return self.linear(hidden, cfg.d_inner, cfg.d_model, f"{name}_out",
                            shard=[tp, None])
 
     def sublayer(self, x, out, name):
-        """post-norm residual connection: LayerNorm(x + out)."""
+        """post-norm residual connection: LayerNorm(x + dropout(out))."""
+        if self.cfg.dropout:
+            out = layers.dropout(out, dropout_prob=self.cfg.dropout)
         return layers.layer_norm(
             layers.elementwise_add(x, out), begin_norm_axis=2,
             param_attr=ParamAttr(name=f"{name}_ln_scale"),
             bias_attr=ParamAttr(name=f"{name}_ln_bias"))
 
     def embed(self, words, vocab_size, name):
-        """token embedding * sqrt(d) + sinusoid positions."""
+        """token embedding * sqrt(d) + sinusoid positions, then dropout."""
         cfg = self.cfg
         emb = layers.embedding(words, size=[vocab_size, cfg.d_model],
                                padding_idx=cfg.pad_idx,
@@ -141,7 +165,10 @@ class _Builder:
                 name=f"{name}_pos_enc", trainable=False,
                 initializer=NumpyArrayInitializer(
                     _sinusoid_table(cfg.max_length, cfg.d_model)[:seq_len])))
-        return layers.elementwise_add(emb, pos_table, axis=1)
+        out = layers.elementwise_add(emb, pos_table, axis=1)
+        if cfg.dropout:
+            out = layers.dropout(out, dropout_prob=cfg.dropout)
+        return out
 
     def seq_lengths(self, words):
         """[B] count of non-pad tokens (key-padding lengths for flash)."""

@@ -4,6 +4,7 @@ of X anchored at ``axis``."""
 
 from __future__ import annotations
 
+from ..core import amp
 from ..core.registry import register_op
 from .common import broadcast_y, elemwise_shape
 
@@ -12,7 +13,10 @@ def _make(name, fn):
     @register_op(name, infer_shape=elemwise_shape)
     def _lower(ctx, ins, attrs, _fn=fn):
         x, y = ins["X"][0], ins["Y"][0]
-        return {"Out": [_fn(x, broadcast_y(x, y, attrs.get("axis", -1)))]}
+        # amp keep_output: an fp32 bias or scale must not re-widen a bf16
+        # activation chain through promotion
+        return {"Out": [_fn(*amp.match_kept(
+            x, broadcast_y(x, y, attrs.get("axis", -1))))]}
 
     return _lower
 

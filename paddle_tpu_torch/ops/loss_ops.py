@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import amp
 from ..core.registry import register_op
 from .common import in_desc, set_output
 
@@ -24,14 +25,16 @@ def _cross_entropy(ctx, ins, attrs):
     ignore_index give 0."""
     if attrs.get("soft_label", False):
         raise NotImplementedError("soft labels are not ported")
-    x = ins["X"][0]
+    x0 = ins["X"][0]
+    # the log runs fp32 for half-width probabilities; Y keeps X's dtype
+    x = x0.to(amp.stats_dtype(x0))
     lab = ins["Label"][0]
     if lab.dim() == x.dim():
         lab = lab.squeeze(-1)
     loss = -torch.log(torch.gather(x, -1, lab.unsqueeze(-1).long()) + 1e-12)
     ignore = attrs.get("ignore_index", -100)
     return {"Y": [torch.where((lab != ignore).unsqueeze(-1), loss,
-                              torch.zeros_like(loss))]}
+                              torch.zeros_like(loss)).to(x0.dtype)]}
 
 
 def _swce_infer(op, block):
@@ -53,7 +56,9 @@ def _softmax_with_cross_entropy(ctx, ins, attrs):
         raise NotImplementedError("soft labels are not ported")
     logits = ins["Logits"][0]
     lab = ins["Label"][0]
-    logp = torch.log_softmax(logits, dim=-1)
+    # half-width logits (amp keep_output) reduce in fp32; the outputs keep
+    # the logits' dtype
+    logp = torch.log_softmax(logits.to(amp.stats_dtype(logits)), dim=-1)
     if lab.dim() == logits.dim():
         lab = lab.squeeze(-1)
     loss = -torch.gather(logp, -1, lab.unsqueeze(-1).long())
@@ -63,5 +68,6 @@ def _softmax_with_cross_entropy(ctx, ins, attrs):
     ignore = attrs.get("ignore_index", -100)
     loss = torch.where((lab != ignore).unsqueeze(-1), loss,
                        torch.zeros_like(loss))
-    softmax = torch.exp(logp) if ctx.is_read("Softmax") else None
-    return {"Softmax": [softmax], "Loss": [loss]}
+    softmax = (torch.exp(logp).to(logits.dtype) if ctx.is_read("Softmax")
+               else None)
+    return {"Softmax": [softmax], "Loss": [loss.to(logits.dtype)]}

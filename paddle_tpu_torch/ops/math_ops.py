@@ -9,6 +9,7 @@ import math
 
 import torch
 
+from ..core import amp
 from ..core.proto import DataType, dtype_to_torch
 from ..core.registry import register_op
 from .common import in_desc, same_shape, set_output
@@ -32,8 +33,9 @@ def _mul(ctx, ins, attrs):
     x, y = ins["X"][0], ins["Y"][0]
     xn = attrs.get("x_num_col_dims", 1)
     yn = attrs.get("y_num_col_dims", 1)
-    out = torch.matmul(x.reshape(math.prod(x.shape[:xn]), -1),
-                       y.reshape(math.prod(y.shape[:yn]), -1))
+    x2 = x.reshape(math.prod(x.shape[:xn]), -1)
+    y2 = y.reshape(math.prod(y.shape[:yn]), -1)
+    out = amp.mxu_output(torch.matmul(*amp.mxu_operands(x2, y2)), x2, y2)
     return {"Out": [out.reshape(*x.shape[:xn], *y.shape[yn:])]}
 
 
@@ -68,7 +70,7 @@ def _matmul(ctx, ins, attrs):
         x = x.transpose(-1, -2)
     if attrs.get("transpose_Y", False) and y.dim() >= 2:
         y = y.transpose(-1, -2)
-    out = torch.matmul(x, y)
+    out = amp.mxu_output(torch.matmul(*amp.mxu_operands(x, y)), x, y)
     alpha = attrs.get("alpha", 1.0)
     if alpha != 1.0:
         out = out * alpha
@@ -110,7 +112,9 @@ def _mean_infer(op, block):
 
 @register_op("mean", infer_shape=_mean_infer)
 def _mean(ctx, ins, attrs):
-    return {"Out": [ins["X"][0].mean().reshape(1)]}
+    # a half-width input accumulates in fp32; the output keeps its dtype
+    x = ins["X"][0]
+    return {"Out": [x.to(amp.stats_dtype(x)).mean().to(x.dtype).reshape(1)]}
 
 
 def _cast_infer(op, block):

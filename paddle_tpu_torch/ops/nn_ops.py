@@ -1,12 +1,14 @@
 """Neural-network ops (counterpart of paddle_tpu/ops/nn_ops.py):
-layer_norm, pool2d, softmax and conv_bn_add_act (train mode, on the
-conv-epilogue kernels)."""
+layer_norm, pool2d, softmax, dropout and conv_bn_add_act (train mode, on
+the conv-epilogue kernels)."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..core import amp
+from ..core.proto import DataType
 from ..core.registry import register_op
 from ..kernels.conv_epilogue import conv_bn_act_trainable
 from .common import in_desc, same_shape, set_output
@@ -30,14 +32,17 @@ def _layer_norm_infer(op, block):
              diff_inputs=["X", "Scale", "Bias"])
 def _layer_norm(ctx, ins, attrs):
     """Normalize over the dims from begin_norm_axis on (population
-    variance), then scale and shift."""
+    variance), then scale and shift.  The statistics and the affine are
+    fp32 for a half-width x (amp keep_output); Y, Mean and Variance keep
+    x's dtype."""
     x = ins["X"][0]
     begin = attrs.get("begin_norm_axis", 1)
     eps = attrs.get("epsilon", 1e-5)
     axes = tuple(range(begin, x.dim()))
-    mean = x.mean(dim=axes, keepdim=True)
-    var = x.var(dim=axes, keepdim=True, unbiased=False)
-    y = (x - mean) * torch.rsqrt(var + eps)
+    xs = x.to(amp.stats_dtype(x))
+    mean = xs.mean(dim=axes, keepdim=True)
+    var = xs.var(dim=axes, keepdim=True, unbiased=False)
+    y = (xs - mean) * torch.rsqrt(var + eps)
     tail_shape = (1,) * begin + tuple(x.shape[begin:])
     scale = ins.get("Scale", [None])[0]
     bias = ins.get("Bias", [None])[0]
@@ -45,8 +50,8 @@ def _layer_norm(ctx, ins, attrs):
         y = y * scale.reshape(tail_shape)
     if bias is not None:
         y = y + bias.reshape(tail_shape)
-    return {"Y": [y], "Mean": [mean.reshape(-1)],
-            "Variance": [var.reshape(-1)]}
+    return {"Y": [y.to(x.dtype)], "Mean": [mean.reshape(-1).to(x.dtype)],
+            "Variance": [var.reshape(-1).to(x.dtype)]}
 
 
 # -- pooling -----------------------------------------------------------------
@@ -121,7 +126,46 @@ def _pool2d(ctx, ins, attrs):
 # -- softmax -----------------------------------------------------------------
 @register_op("softmax", infer_shape=same_shape())
 def _softmax(ctx, ins, attrs):
-    return {"Out": [torch.softmax(ins["X"][0], dim=attrs.get("axis", -1))]}
+    # half-width logits exponentiate in fp32; Out keeps their dtype
+    x = ins["X"][0]
+    return {"Out": [torch.softmax(x.to(amp.stats_dtype(x)),
+                                  dim=attrs.get("axis", -1)).to(x.dtype)]}
+
+
+def _dropout_infer(op, block):
+    x = in_desc(op, block, "X")
+    if x is None:
+        return
+    set_output(block, op, "Out", x.shape, x.dtype, lod_level=x.lod_level)
+    set_output(block, op, "Mask", x.shape, DataType.UINT8)
+
+
+@register_op("dropout", infer_shape=_dropout_infer, diff_inputs=["X"])
+def _dropout(ctx, ins, attrs):
+    """Two implementations: downgrade_in_infer (the default; train keeps
+    the kept values as they are, infer multiplies by 1 - p) and
+    upscale_in_train (train scales the kept values by 1 / (1 - p), infer
+    is the identity).  Out keeps X's dtype; Mask is uint8.  The keep mask
+    is one uniform draw per element from the program's torch.Generator,
+    on the executor's device, kept where u < 1 - p: one draw per op per
+    step, as the JAX rule takes one key per op per step (the two streams
+    differ)."""
+    x = ins["X"][0]
+    p = attrs.get("dropout_prob", 0.5)
+    impl = attrs.get("dropout_implementation", "downgrade_in_infer")
+    # a scale rounds to x's dtype first, as JAX's weak-typed scalars do
+    if attrs.get("is_test", False):
+        out = (x if impl == "upscale_in_train"
+               else x * torch.tensor(1.0 - p, dtype=x.dtype))
+        return {"Out": [out], "Mask": [torch.ones_like(x, dtype=torch.uint8)]}
+    keep = torch.rand(x.shape, generator=ctx.generator,
+                      device=ctx.device) < 1.0 - p
+    if impl == "upscale_in_train":
+        out = torch.where(keep, x / torch.tensor(max(1.0 - p, 1e-8),
+                                                 dtype=x.dtype), 0.0)
+    else:
+        out = torch.where(keep, x, 0.0)
+    return {"Out": [out], "Mask": [keep.to(torch.uint8)]}
 
 
 # -- conv + batch_norm + residual + activation -------------------------------

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import amp
 from ..core.proto import DataType
 from ..core.registry import register_op
 from .common import in_desc, set_output
@@ -40,11 +41,14 @@ def _reduce_sum(ctx, ins, attrs):
     if isinstance(dims, int):
         dims = [dims]
     keep = attrs.get("keep_dim", False)
+    # a half-width input (amp keep_output) accumulates in fp32
+    xa = x.to(amp.stats_dtype(x))
     if attrs.get("reduce_all", False):
-        out = x.sum(dim=tuple(range(x.dim())), keepdim=keep)
+        out = xa.sum(dim=tuple(range(x.dim())), keepdim=keep)
     else:
-        out = x.sum(dim=tuple(dims), keepdim=keep)
-    # torch widens integer sums to int64; the desc keeps the input's dtype
+        out = xa.sum(dim=tuple(dims), keepdim=keep)
+    # the output keeps the input's dtype (torch widens integer sums to
+    # int64, half-width ones were widened above)
     out = out.to(x.dtype)
     return {"Out": [out.reshape(1) if out.dim() == 0 else out]}
 

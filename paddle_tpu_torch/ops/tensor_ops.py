@@ -1,6 +1,6 @@
 """Tensor creation / manipulation ops (counterpart of
 paddle_tpu/ops/tensor_ops.py): fills, assign, the uniform and gaussian
-initializers, reshape2 / squeeze2 / transpose2 and lookup_table."""
+initializers, reshape2 / squeeze2 / transpose2, split and lookup_table."""
 
 from __future__ import annotations
 
@@ -175,6 +175,41 @@ def _transpose2(ctx, ins, attrs):
 
 
 # -- embedding ---------------------------------------------------------------
+def _split_infer(op, block):
+    x = in_desc(op, block, "X")
+    if x is None:
+        return
+    axis = op.attr("axis", 0)
+    axis = axis + len(x.shape) if axis < 0 else axis
+    num = op.attr("num", 0)
+    sections = op.attr("sections", [])
+    for i in range(len(op.output("Out"))):
+        shape = list(x.shape)
+        if sections:
+            shape[axis] = sections[i]
+        elif num:
+            shape[axis] = x.shape[axis] // num if x.shape[axis] >= 0 else -1
+        set_output(block, op, "Out", shape, x.dtype, idx=i,
+                   lod_level=x.lod_level if axis >= 1 else 0)
+
+
+@register_op("split", infer_shape=_split_infer)
+def _split(ctx, ins, attrs):
+    """``num`` equal parts along ``axis``, or cut at the running sums of
+    ``sections`` (the last part is the rest), as jnp.split cuts."""
+    x = ins["X"][0]
+    axis = attrs.get("axis", 0)
+    sections = attrs.get("sections", [])
+    if sections:
+        return {"Out": list(torch.tensor_split(
+            x, np.cumsum(sections)[:-1].tolist(), dim=axis))}
+    num = attrs.get("num", 1)
+    if x.shape[axis] % num:
+        raise ValueError(f"split: dim {axis} of size {x.shape[axis]} does "
+                         f"not divide into {num} equal parts")
+    return {"Out": list(torch.tensor_split(x, num, dim=axis))}
+
+
 def _lookup_infer(op, block):
     w = in_desc(op, block, "W")
     ids = in_desc(op, block, "Ids")

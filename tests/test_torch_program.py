@@ -174,12 +174,32 @@ def test_main_before_startup_raises():
                 scope=tfluid.Scope())
 
 
+PORTED_OPTIONS = ("dropout", "fuse_qkv")
+
+
 @pytest.mark.parametrize("option", [
-    dict(dropout=0.1), dict(use_flash_attention=False), dict(fuse_qkv=True),
-    dict(use_recompute=True), dict(fuse_smooth_ce=False)])
+    dict(dropout=0.1, use_recompute=True), dict(use_flash_attention=False),
+    dict(fuse_qkv=True, fuse_smooth_ce=False), dict(use_recompute=True),
+    dict(fuse_smooth_ce=False)])
 def test_unported_model_options_raise(option):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """An unported option raises, alone or beside a ported one, and the
+    message names the unported options only."""
+    with pytest.raises(NotImplementedError, match="not ported") as err:
         build("torch", **option)
+    msg = str(err.value)
+    assert all(k in msg for k in option if k not in PORTED_OPTIONS)
+    assert not any(k in msg for k in PORTED_OPTIONS)
+
+
+@pytest.mark.parametrize("option", [dict(dropout=0.1), dict(fuse_qkv=True)])
+def test_ported_model_options_match_jax(option):
+    """dropout > 0 (the dropout ops) and fuse_qkv (one projection and a
+    split) build in both packages with equal canonical descs."""
+    jprog, tprog = build("jax", **option), build("torch", **option)
+    for idx in (0, 1):
+        assert canonical(tprog[idx]) == canonical(jprog[idx])
+    made = "dropout" if "dropout" in option else "split"
+    assert made in [op.type for op in tprog[0].desc.block(0).ops]
 
 
 def test_nesterov_momentum_raises():
