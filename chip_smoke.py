@@ -45,6 +45,16 @@ prints no final result line):
    gate; and the bf16 kernels against the fp32 kernels on the same values
    (out within 2^-8 * (P|V| + |out|) elementwise, gradients within 2^-6
    in norm).
+   The bf16 entries of conv_stats and bn_epilogue against their bf16
+   plain versions on every ResNet-50 conv shape class at batch 4 and 256
+   and one case off the tiles: out and y within 2^-7 * max |plain| with
+   at most 1% of the elements not bit-equal, the channel sums within
+   1e-4 of the vector's largest; two planted faults against that gate
+   (the batch statistics taken from the rounded conv output, which must
+   fail wherever M = N * Ho * Wo <= 4096 and is reported everywhere; the
+   residual left unrounded, which must fail everywhere); and the bf16
+   kernels against the fp32 kernels on the same values (out within half
+   a bf16 ulp, y within 2^-8 (|y| + |inv gamma out|) elementwise).
 3. Serving at the Transformer-base width (vocab 10000, d_model 512,
    8 heads, 6 layers, d_inner 2048, max_length 256; random weights from a
    seed): ``ContinuousBatchingLoop.run`` on 16 requests (prompts of 16-128
@@ -142,6 +152,27 @@ prints no final result line):
    end.  The card then runs the step again with a planted forward fault,
    bn_epilogue's inv scaled by 1.01 (and by 1.001, reported only): the
    gradient gate must fail it.
+   Then ResNet-50 under bf16 AMP at the same width, batch and optimizer,
+   ten steps on one batch per run: the conv tier under
+   ``enable_amp("bfloat16")`` and ``keep_output=True``, the unfused form
+   (``fuse_bn=False``, bench.py's default: cuDNN convs, the batch_norm
+   rule) under both, and ``fuse_bn=True`` under the first.  The counters,
+   zeroed before each run, must read 53 launches a step of the bf16
+   conv_stats and bn_epilogue entries and none of the fp32 ones in the
+   conv tier, none at all in the other forms; losses finite and the last
+   below the first; Y of every conv and batch-norm op bf16 under keep and
+   fp32 under amp1 (one batch-2 step), every persistable fp32; median
+   step, images/s, peak memory and a profiled step (device time by kind,
+   copies and casts) per run.  Then the conv tier under keep, one batch-2
+   step on the card and on the CPU: every conv_bn_add_act call of the
+   card's step against the bf16 plain versions on its own inputs (y
+   within 2^-7 * max |plain|, at most 1% of it not bit-equal, mean and
+   var within 1e-4), and the card's step again with the statistics taken
+   from the rounded conv output, which that gate must fail; the loss
+   within 2^-5 of the CPU's and the gradients within 1.5 times the
+   distance of a CPU run on the image scaled by 1 + 2^-20 (in bf16 the
+   step is chaotic: that perturbation alone moves the gradients by about
+   120% in norm).
 6. Times from CUDA events (median of 30 after warm-up, the launches queued
    behind a device sleep so host overhead stays out): each kernel, its
    plain version, its bound (bytes over 3.35 TB/s or fp32 flops over
@@ -156,7 +187,10 @@ prints no final result line):
    context; SDPA with a boolean mask over the gathered K/V) and row 4a
    over the same context unevicted; the bf16 entries of rows 1-3 at the
    training shape (bound over the dense bf16 tensor peak, 989 TFLOP/s;
-   SDPA in bf16).
+   SDPA in bf16); the bf16 entries of conv_stats (row 6: in JAX every bf16
+   conv takes it) at rows 5 and 6's shapes and bn_epilogue at row 7's,
+   bytes at 2-byte activations, flops over the bf16 peak, the library
+   calls in bf16 on channels-last tensors.
 
 Each phase prints one JSON line; the line before the last is the
 ``kernels`` summary and the last line is exactly
@@ -1578,6 +1612,8 @@ SPREAD = 3.0           # card vs fp64: at most this times the CPU fp32 distance
 FAULTS = (1e-2, 1e-3)  # planted forward faults: bn_epilogue's inv * (1 + d);
                        # the first must fail the SPREAD gate
 CONV_KERNELS = ("conv_stats", "bn_epilogue")
+# bench.py's three ResNet forms (BENCH_FUSE_BN, bench.py:113-117)
+FUSE_BN = {"conv": "conv", "unfused": False, "fused": True}
 
 
 def _flash_counts(fa):
@@ -2141,10 +2177,10 @@ def _dropout_on_card(torch):
 
 # -- phase 5: ResNet-50 training --------------------------------------------
 
-def build_resnet(fluid, img_dtype=None):
-    """(main, startup, spec, params_grads) of ResNet-50 + Momentum, under
-    fresh name counters so an fp32 and a float64 build name every
-    variable alike."""
+def build_resnet(fluid, img_dtype=None, form="conv"):
+    """(main, startup, spec, params_grads) of ResNet-50 + Momentum in one
+    of the FUSE_BN forms, under fresh name counters so an fp32 and a
+    float64 build name every variable alike."""
     from paddle_tpu_torch.core.framework import unique_name_guard
     from paddle_tpu_torch.models import resnet_imagenet
 
@@ -2152,7 +2188,8 @@ def build_resnet(fluid, img_dtype=None):
     with unique_name_guard(), fluid.program_guard(main, startup):
         img = (None if img_dtype is None else fluid.layers.data(
             "image", list(RESNET_CFG["img_shape"]), dtype=img_dtype))
-        spec = resnet_imagenet(img=img, **RESNET_CFG)
+        spec = resnet_imagenet(img=img, **dict(RESNET_CFG,
+                                               fuse_bn=FUSE_BN[form]))
         _, params_grads = fluid.optimizer.MomentumOptimizer(
             learning_rate=RESNET_LR, momentum=MOMENTUM).minimize(spec.loss)
     return main, startup, spec, params_grads
@@ -2250,6 +2287,11 @@ def _conv_counts(ce):
             "bn_epilogue": ce.bn_epilogue.launches}
 
 
+def _conv_counts_by_dtype(ce):
+    return {"conv_stats": dict(ce.conv_stats.launches_by_dtype),
+            "bn_epilogue": dict(ce.bn_epilogue.launches_by_dtype)}
+
+
 def phase_resnet(torch, np, fluid):
     """The fluid entry points on the card: resnet_imagenet ->
     Momentum.minimize -> Executor.run(startup) -> Executor.run(main) for
@@ -2269,8 +2311,7 @@ def phase_resnet(torch, np, fluid):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ce.conv_stats.launches = ce.bn_epilogue.launches = 0
-    ce.conv_stats.launches_by_shape.clear()
+    ce.reset_launches()
     ce.conv_bn_act.layout_copies = 0
     losses, step_s = [], []
     for _ in range(RESNET_STEPS):
@@ -2281,17 +2322,21 @@ def phase_resnet(torch, np, fluid):
         step_s.append(time.perf_counter() - t0)
         losses.append(float(loss.reshape(-1)[0]))
     launches = _conv_counts(ce)
+    by_dtype = _conv_counts_by_dtype(ce)
     by_shape = dict(ce.conv_stats.launches_by_shape)
     copies = ce.conv_bn_act.layout_copies
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     want = {k: n_conv * RESNET_STEPS for k in CONV_KERNELS}
-    if n_conv != 53 or launches != want:
-        raise AssertionError(f"resnet launches {launches} != {want} "
-                             f"({n_conv} conv ops)")
-    want_by_shape = {}  # conv_stats's shape key: (N, H, W, C, F, K, s, p)
+    want_by_dtype = {k: {"float32": n, "bfloat16": 0}
+                     for k, n in want.items()}
+    if n_conv != 53 or launches != want or by_dtype != want_by_dtype:
+        raise AssertionError(f"resnet launches {by_dtype} != "
+                             f"{want_by_dtype} ({n_conv} conv ops)")
+    # conv_stats's shape key: (N, H, W, C, F, K, s, p, dtype)
+    want_by_shape = {}
     for key, n in conv_classes(main, RESNET_BATCH).items():
-        want_by_shape[key[:8]] = want_by_shape.get(key[:8], 0) + (
-            n * RESNET_STEPS)
+        k = key[:8] + ("float32",)
+        want_by_shape[k] = want_by_shape.get(k, 0) + n * RESNET_STEPS
     if by_shape != want_by_shape:
         raise AssertionError(f"conv_stats launches by shape {by_shape} != "
                              f"the program's {want_by_shape}")
@@ -2326,6 +2371,22 @@ def phase_resnet(torch, np, fluid):
     return launches, by_shape, trace
 
 
+# kernel names by kind, first match wins: the port's conv-epilogue
+# kernels, host-device copies, copies and dtype casts, cuDNN's and
+# cuBLAS's convolution and GEMM kernels, reductions, other elementwise
+# work
+_KINDS = (("conv_stats", ("conv_stats", "stats_reduce_kernel")),
+          ("bn_epilogue", ("bn_epilogue",)),
+          ("memcpy", ("Memcpy", "Memset")),
+          ("copies_and_casts", ("copy", "Copy", "nchwToNhwc", "nhwcToNchw",
+                                "ranspose")),
+          ("library_conv_and_gemm", ("conv", "Conv", "xmma", "cudnn",
+                                     "cutlass", "nvjet", "gemm", "sm90",
+                                     "sm80", "dgrad", "wgrad", "fprop")),
+          ("reductions", ("reduce_kernel", "Reduce")),
+          ("elementwise", ("elementwise", "Elementwise")))
+
+
 def _trace_resnet(torch, exe, main, spec, batch, scope, step_wall):
     """One more step under torch.profiler: device busy time from the
     device's own events only; each conv kernel's summed ms (conv_stats is
@@ -2344,15 +2405,27 @@ def _trace_resnet(torch, exe, main, spec, batch, scope, step_wall):
     busy_s = sum(by_name.values()) / 1e6
     if not busy_s:
         raise AssertionError("the profiler saw no device time")
-    marks = {"conv_stats": ("conv_stats_kernel", "stats_reduce_kernel"),
+    marks = {"conv_stats": ("conv_stats", "stats_reduce_kernel"),
              "bn_epilogue": ("bn_epilogue",)}
     own_us = {k: sum(us for name, us in by_name.items()
                      if any(m in name for m in ms))
               for k, ms in marks.items()}
+    # layout changes and copies (dtype casts are elementwise copies too)
+    copy_marks = ("copy", "Copy", "nchwToNhwc", "nhwcToNchw", "ranspose")
+    copy_us = {name: us for name, us in by_name.items()
+               if any(m in name for m in copy_marks)}
+    by_kind = {}
+    for name, us in by_name.items():
+        kind = next((k for k, ms in _KINDS if any(m in name for m in ms)),
+                    "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
     return {"traced_wall_s": wall, "device_busy_s": busy_s,
             "busy_share": busy_s / step_wall,
             "kernel_ms_per_step": {k: us / 1e3 for k, us in own_us.items()},
             "kernels_share_of_busy": sum(own_us.values()) / 1e6 / busy_s,
+            "device_ms_by_kind": by_kind,
+            "copy_and_layout_ms": sum(copy_us.values()) / 1e3,
+            "copy_and_layout_kernels": _top_kernels(copy_us, 8),
             "device_ms_by_kernel": _top_kernels(by_name, 40)}
 
 
@@ -2416,7 +2489,9 @@ def _planted_fault(plain, d):
     backward still takes the true inv)."""
     def bn_epilogue(out, mean, inv, *args):
         return plain(out, mean, inv * (1.0 + d), *args)
-    bn_epilogue.launches = 0  # plain's body counts under the module name
+    # plain's body counts under the module name
+    bn_epilogue.launches = 0
+    bn_epilogue.launches_by_dtype = dict(plain.launches_by_dtype)
     return bn_epilogue
 
 
@@ -2517,6 +2592,540 @@ def _resnet_card_vs_cpu(np, fluid, main, spec, params_grads, init_state):
         raise AssertionError(f"the gradient gate let a planted fault "
                              f"through: {faults}")
     return out
+
+
+# -- phase 5b: ResNet-50 under bf16 AMP --------------------------------------
+
+# the runs, in order: bench.py's three forms under its two AMP tiers
+# (BENCH_AMP "1", bf16 conv operands with fp32 outputs, and the tuner's
+# "keep", bf16 outputs), fuse_bn=True under amp1 only
+RESNET_AMP_RUNS = (("conv", "amp1"), ("conv", "keep"), ("unfused", "amp1"),
+                   ("unfused", "keep"), ("fused", "amp1"))
+# the rounded-statistics fault moves y by the rounding noise of the batch
+# mean and variance, which shrinks as 1/sqrt(M) (M = N * Ho * Wo): the
+# share-of-elements gate sees it where M is small (4.3-11.3% of y at M =
+# 72-288 on the CPU), so it is required to fail there, and reported at
+# every shape
+ROUNDED_STATS_GATED_M = 4096
+# the keep step card against the CPU (batch 2, at the startup state): in
+# bf16 the step is chaotic.  On the CPU, the image scaled by 1 + 2^-20
+# moved the keep loss by 1.6% and the gradients by 117% (median leaf) and
+# 121% (all leaves) in norm, where in fp32 the same perturbation moved the
+# gradients by 2.8%: a rounding that flips early reaches every later
+# batch norm.  So the model-level gates are loose: the loss within 2^-5,
+# and the gradients no farther from the CPU's than RESNET_AMP_SPREAD times
+# the CPU's own distance from its perturbed run, measured in the same
+# call; they catch gross faults only.  The tight gate is per call.
+RESNET_AMP_LOSS_RTOL = 2.0 ** -5
+RESNET_AMP_SPREAD = 1.5
+RESNET_AMP_PERTURB = 2.0 ** -20
+
+
+def phase_conv_parity_bf16(torch, fluid):
+    """The bf16 entries of conv_stats and bn_epilogue against their bf16
+    plain versions on the same inputs, at every conv shape class of the
+    ResNet-50 program at batch 4 and at the main path's batch, and one
+    case off the tiles.  ``out`` and y: max abs error <= BF16_ULP * max
+    |plain| with at most MISMATCH_SHARE of the elements not bit-equal;
+    sum and sumsq within PARITY_TOL of the vector's largest.  Two planted
+    faults against the plain y: the statistics taken from the rounded
+    ``out`` (run through the bf16 kernel; required to fail where M <=
+    ROUNDED_STATS_GATED_M, reported everywhere), and the residual left
+    unrounded in fp32 (required to fail at every shape with a residual).
+    Then the bf16 kernels against the fp32 kernels on the same
+    bf16-valued inputs: |out16 - out32| <= 2^-8 |out32| and |y16 - y32|
+    <= 2^-8 (|y32| + |inv gamma out32|) * 1.01 elementwise (one rounding
+    of at most half a bf16 ulp each), plus 1e-5 of the tensor's largest
+    for fp32 order."""
+    from paddle_tpu_torch.kernels import conv_epilogue as ce
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    rng = torch.Generator(device=dev).manual_seed(SEED + 8)
+    main = build_resnet(fluid)[0]
+    cases = [k for n in (CONV_PARITY_BATCH, RESNET_BATCH)
+             for k in sorted(conv_classes(main, n))]
+    cases.append((3, 13, 11, 37, 70, 3, 1, 1, True, "relu"))  # off the tiles
+    rows, faults, vs_fp32 = [], [], []
+    errs = {k: [] for k in CONV_KERNELS}
+    for N, H, W, C, Fo, K, s, p, res, act in cases:
+        name = f"{N}x{H}x{W}x{C}->{Fo} k{K}s{s}p{p}{' +z' if res else ''}" \
+               f"{' relu' if act else ''}"
+        x, w, gamma, beta = _conv_inputs(torch, rng, N, H, W, C, Fo, K, dev)
+        x, w = x.to(bf16), w.to(bf16)
+        out, ssum, ssq = ce.conv_stats(x, w, s, p)
+        pout, psum, pssq = ce.conv_stats_reference(x, w, s, p)
+        M = pout.shape[0] * pout.shape[1] * pout.shape[2]
+        gate = _bf16_gate(out, pout)
+        rows.append({"kernel": "conv_stats_bf16", "case": name, "what": "out",
+                     **gate})
+        errs["conv_stats"].append(gate["max_abs_err"])
+        for what, got, want in (("sum", ssum, psum), ("sumsq", ssq, pssq)):
+            err = float((got - want).abs().max())
+            bound = PARITY_TOL * float(want.abs().max())
+            rows.append({"kernel": "conv_stats_bf16", "case": name,
+                         "what": what, "max_abs_err": err, "bound": bound,
+                         "ok": err <= bound})
+        mean, var = ce._batch_stats(pout, psum, pssq)
+        inv = torch.rsqrt(var + 1e-5)
+        z32 = (torch.randn(pout.shape, generator=rng, device=dev) if res
+               else None)
+        z = None if z32 is None else z32.to(bf16)
+        y = ce.bn_epilogue(pout, mean, inv, gamma, beta, z, act)
+        py = ce.bn_epilogue_reference(pout, mean, inv, gamma, beta, z, act)
+        gate = _bf16_gate(y, py)
+        rows.append({"kernel": "bn_epilogue_bf16", "case": name, "what": "y",
+                     **gate})
+        errs["bn_epilogue"].append(gate["max_abs_err"])
+        # the planted faults
+        rvar, rmean = torch.var_mean(out.float(), dim=(0, 1, 2),
+                                     unbiased=False)
+        bad = ce.bn_epilogue(out, rmean, torch.rsqrt(rvar + 1e-5), gamma,
+                             beta, z, act)
+        planted = _bf16_gate(bad, py)
+        faults.append({"fault": "statistics from the rounded out",
+                       "case": name, "M": M,
+                       "mismatch_share": planted["mismatch_share"],
+                       "caught": not planted["ok"],
+                       "required": M <= ROUNDED_STATS_GATED_M})
+        if res:
+            bad = ce.bn_epilogue_reference(pout.float(), mean, inv, gamma,
+                                           beta, z32, act).to(bf16)
+            planted = _bf16_gate(bad, py)
+            faults.append({"fault": "residual unrounded", "case": name,
+                           "M": M,
+                           "mismatch_share": planted["mismatch_share"],
+                           "caught": not planted["ok"], "required": True})
+        del bad, pout, py
+        # the bf16 kernels against the fp32 kernels on the same values
+        out32, s32, q32 = ce.conv_stats(x.float(), w.float(), s, p)
+        m32, v32 = ce._batch_stats(out32, s32, q32)
+        i32 = torch.rsqrt(v32 + 1e-5)
+        y32 = ce.bn_epilogue(out32, m32, i32, gamma, beta,
+                             None if z is None else z.float(), act)
+        m16, v16 = ce._batch_stats(out, ssum, ssq)
+        y16 = ce.bn_epilogue(out, m16, torch.rsqrt(v16 + 1e-5), gamma, beta,
+                             z, act)
+        out_bound = 2.0 ** -8 * out32.abs() + 1e-5 * float(
+            out32.abs().max())
+        y_bound = (2.0 ** -8 * 1.01 * (y32.abs() + (i32 * gamma).abs()
+                                       * out32.abs())
+                   + 1e-5 * float(y32.abs().max()))
+        out_ratio = float(((out.float() - out32).abs() / out_bound).max())
+        y_ratio = float(((y16.float() - y32).abs() / y_bound).max())
+        vs_fp32.append({"case": name, "out_err_over_bound": out_ratio,
+                        "y_err_over_bound": y_ratio,
+                        "sums_equal": bool(torch.equal(ssum, s32)
+                                           and torch.equal(ssq, q32)),
+                        "ok": out_ratio <= 1.0 and y_ratio <= 1.0})
+        del x, w, out, out32, y, y16, y32, z, z32
+    torch.cuda.empty_cache()
+    emit({"phase": "conv_parity_bf16", "tolerance": (
+              f"out, y: max abs err <= {BF16_ULP} * max |plain| and at most "
+              f"{MISMATCH_SHARE} of the elements not bit-equal; sum, sumsq: "
+              f"max abs err <= {PARITY_TOL} * max |plain|"),
+          "batches": [CONV_PARITY_BATCH, RESNET_BATCH], "cases": rows,
+          "planted_faults": faults, "vs_fp32_kernels": vs_fp32,
+          "vs_fp32_tolerance": (
+              "|out16 - out32| <= 2^-8 |out32| + 1e-5 max|out32|; |y16 - "
+              "y32| <= 1.01 * 2^-8 (|y32| + |inv gamma| |out32|) + 1e-5 "
+              "max|y32|, elementwise")})
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"bf16 conv-epilogue parity beyond its bound: "
+                             f"{bad}")
+    missed = [f for f in faults if f["required"] and not f["caught"]]
+    if missed or not any(f["required"] for f in faults):
+        raise AssertionError(f"a planted rounding fault passed the gate: "
+                             f"{missed}")
+    bad = [c for c in vs_fp32 if not c["ok"]]
+    if bad:
+        raise AssertionError(f"bf16 conv kernels beyond their bound against "
+                             f"the fp32 kernels: {bad}")
+    return {k: max(v) for k, v in errs.items()}
+
+
+def _resnet_act_names(main):
+    """Y of every conv op (conv_bn_add_act's Y, conv2d's Output) and every
+    batch-norm op (batch_norm's and fused_bn_add_act's Y)."""
+    ops = main.desc.block(0).ops
+    return {"conv": [n for op in ops
+                     if op.type in ("conv_bn_add_act", "conv2d")
+                     for n in op.output("Y" if op.type == "conv_bn_add_act"
+                                        else "Output")],
+            "batch_norm": [op.output("Y")[0] for op in ops
+                           if op.type in ("batch_norm", "fused_bn_add_act")]}
+
+
+def phase_resnet_amp(torch, np, fluid):
+    """ResNet-50 at full width (batch 256, Momentum(0.1, 0.9)) through the
+    fluid entry points under bf16 AMP: each run of RESNET_AMP_RUNS trains
+    RESNET_STEPS steps on one fixed batch from its form's startup state.
+    The conv counters, zeroed before each run, must read 53 launches a
+    step of conv_stats_bf16 and of bn_epilogue_bf16 and none of the fp32
+    entries for the conv tier under either tier (``mxu_operands`` casts X
+    to bf16 under both), and none at all for the other forms; losses
+    finite and the last below the first.  Median step, images/s, peak
+    allocated memory and a profiled step per run; then one step at
+    PARITY_BATCH fetches Y of every conv and batch-norm op: bf16 under
+    keep, fp32 under amp1, with every persistable (master weights,
+    velocities, moving statistics) fp32."""
+    from paddle_tpu_torch.kernels import conv_epilogue as ce
+
+    runs, launches = {}, {}
+    for form, tier in RESNET_AMP_RUNS:
+        keep = AMP_TIERS[tier]
+        main, startup, spec, params_grads = build_resnet(fluid, form=form)
+        n_conv = sum(op.type in ("conv_bn_add_act", "conv2d")
+                     for op in main.desc.block(0).ops)
+        acts = _resnet_act_names(main)
+        exe = fluid.Executor()
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        batch = spec.synthetic_batch(RESNET_BATCH, seed=SEED)
+        small = spec.synthetic_batch(PARITY_BATCH, seed=SEED + 1)
+        fluid.enable_amp("bfloat16", keep_output=keep)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ce.reset_launches()
+            ce.conv_bn_act.layout_copies = 0
+            losses, step_s = [], []
+            for _ in range(RESNET_STEPS):
+                t0 = time.perf_counter()
+                loss, = exe.run(main, feed=batch, fetch_list=[spec.loss],
+                                scope=scope)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                losses.append(float(loss.reshape(-1)[0]))
+            counts = _conv_counts_by_dtype(ce)
+            copies = ce.conv_bn_act.layout_copies
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            step_med = statistics.median(step_s)
+            trace = _trace_resnet(torch, exe, main, spec, batch, scope,
+                                  step_med)
+            vals = exe.run(main, feed=small,
+                           fetch_list=acts["conv"] + acts["batch_norm"],
+                           scope=scope, return_numpy=False)
+            act_dtypes = {
+                "conv": sorted({str(v.dtype) for v in vals[
+                    :len(acts["conv"])]}),
+                "batch_norm": sorted({str(v.dtype) for v in vals[
+                    len(acts["conv"]):]})}
+            del vals
+            state_dtypes = sorted({str(scope.find_var(n).dtype)
+                                   for n, v in startup.desc.block(0)
+                                   .vars.items() if v.persistable})
+        finally:
+            fluid.disable_amp()
+        del scope
+        torch.cuda.empty_cache()
+        n = n_conv * RESNET_STEPS if form == "conv" else 0
+        want = {k: {"float32": 0, "bfloat16": n} for k in CONV_KERNELS}
+        name = f"{form}_{tier}"
+        if n_conv != 53 or counts != want:
+            raise AssertionError(f"{name}: launches {counts} != {want} "
+                                 f"({n_conv} conv ops)")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{name}: losses not finite and falling: "
+                                 f"{losses}")
+        dt = "torch.bfloat16" if keep else "torch.float32"
+        if (act_dtypes["conv"] != [dt]
+                or act_dtypes["batch_norm"] not in ([dt], [])
+                or (form != "conv") != bool(act_dtypes["batch_norm"])
+                or state_dtypes != ["torch.float32"]):
+            raise AssertionError(f"{name}: activation dtypes {act_dtypes}, "
+                                 f"state {state_dtypes}; want {dt}")
+        launches[name] = {k: v["bfloat16"] for k, v in counts.items()}
+        runs[name] = {
+            "fuse_bn": FUSE_BN[form],
+            "enable_amp": {"dtype": "bfloat16", "keep_output": keep},
+            "main_ops": len(main.desc.block(0).ops),
+            "losses": losses, "step_s": step_s,
+            "step_ms_median": 1e3 * step_med,
+            "images_per_s": RESNET_BATCH / step_med,
+            "peak_alloc_gib": peak_gib, "launches": counts,
+            "launches_per_step": {k: v["bfloat16"] / RESNET_STEPS
+                                  for k, v in counts.items()},
+            "conv_tier_layout_copies_per_step": copies / RESNET_STEPS,
+            "activation_dtypes": act_dtypes,
+            "activation_dtypes_batch": PARITY_BATCH,
+            "persistable_dtypes": state_dtypes, "trace": trace}
+    emit({"phase": "resnet_amp_training", "config": {
+        k: list(v) if isinstance(v, tuple) else v
+        for k, v in RESNET_CFG.items() if k != "fuse_bn"},
+          "optimizer": {"type": "momentum", "lr": RESNET_LR,
+                        "momentum": MOMENTUM},
+          "batch": RESNET_BATCH, "steps": RESNET_STEPS, "runs": runs})
+    emit({"phase": "resnet_amp_card_vs_cpu",
+          **_resnet_amp_card_vs_cpu(torch, np, fluid)})
+    return launches
+
+
+@contextlib.contextmanager
+def _recording_conv(nn_ops, calls):
+    """Record every conv_bn_add_act call of the conv-epilogue kernels the
+    block runner makes while the context is open: inputs (x, w, gamma,
+    beta, z and the attributes) and outputs (y, mean, var), detached."""
+    trainable = nn_ops.conv_bn_act_trainable
+
+    def rec(x, w, gamma, beta, z=None, **kw):
+        y, mean, var = trainable(x, w, gamma, beta, z, **kw)
+        calls.append(([None if t is None else t.detach()
+                       for t in (x, w, gamma, beta, z)], kw,
+                      [t.detach() for t in (y, mean, var)]))
+        return y, mean, var
+
+    nn_ops.conv_bn_act_trainable = rec
+    try:
+        yield
+    finally:
+        nn_ops.conv_bn_act_trainable = trainable
+
+
+@contextlib.contextmanager
+def _rounded_stats_fault(ce):
+    """The planted fault on the card: conv_bn_act takes its batch
+    statistics from the rounded conv output (two-pass), as the JAX
+    reference composition does."""
+    plain = ce._batch_stats
+
+    def rounded(out, ssum, ssq):
+        import torch
+
+        var, mean = torch.var_mean(out.float(), dim=(0, 1, 2),
+                                   unbiased=False)
+        return mean, var
+
+    ce._batch_stats = rounded
+    try:
+        yield
+    finally:
+        ce._batch_stats = plain
+
+
+def _conv_calls_vs_plain(torch, ce, calls):
+    """Each recorded conv_bn_add_act call against the bf16 plain versions
+    on the CPU, on its own inputs: the conv output through
+    conv_stats_reference, the statistics from its fp32 sums, y through
+    bn_epilogue_reference.  y: max abs error <= BF16_ULP * max |plain| and
+    at most MISMATCH_SHARE of its elements not bit-equal; mean and var
+    within PARITY_TOL of the vector's largest."""
+    worst, share, stats, ok = 0.0, 0.0, 0.0, True
+    for (x, w, gamma, beta, z), kw, (y, mean, var) in calls:
+        x, w, gamma, beta = (t.cpu() for t in (x, w, gamma, beta))
+        z = None if z is None else z.cpu()
+        pout, psum, pssq = ce.conv_stats_reference(x, w, kw["stride"],
+                                                   kw["padding"])
+        pmean, pvar = ce._batch_stats(pout, psum, pssq)
+        py = ce.bn_epilogue_reference(pout, pmean,
+                                      torch.rsqrt(pvar + kw["eps"]), gamma,
+                                      beta, z, kw["act"])
+        gate = _bf16_gate(y.cpu(), py)
+        worst = max(worst, gate["max_abs_err"] / gate["bound"])
+        share = max(share, gate["mismatch_share"])
+        for got, want in ((mean, pmean), (var, pvar)):
+            stats = max(stats, float((got.cpu() - want).abs().max())
+                        / float(want.abs().max()))
+        ok = ok and gate["ok"]
+    return {"calls": len(calls), "y_max_err_over_bound": worst,
+            "y_max_mismatch_share": share, "stats_max_rel_err": stats,
+            "ok": ok and stats <= PARITY_TOL}
+
+
+def _resnet_amp_card_vs_cpu(torch, np, fluid):
+    """The conv tier under keep, one PARITY_BATCH step from one startup
+    state on the card, on a CPUPlace executor, and on the CPU with the
+    image scaled by 1 + RESNET_AMP_PERTURB.  The model-level gates: the
+    card's loss within RESNET_AMP_LOSS_RTOL of the CPU's, and its
+    param@GRADs no farther from the CPU's in norm (median leaf, and all
+    leaves together) than RESNET_AMP_SPREAD times the perturbed CPU run
+    lies (the step is chaotic in bf16).  The tight gate: every
+    conv-epilogue call of the card's step against the bf16 plain versions
+    on its own inputs (``_conv_calls_vs_plain``); the card then runs the
+    step again with the statistics taken from the rounded conv output,
+    and that per-call gate must fail."""
+    from paddle_tpu_torch.kernels import conv_epilogue as ce
+    from paddle_tpu_torch.ops import nn_ops
+
+    main, startup, spec, params_grads = build_resnet(fluid)
+    scope = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope)
+    init_state = _persistables(startup, scope)
+    del scope
+    batch = spec.synthetic_batch(PARITY_BATCH, seed=SEED + 1)
+    image = spec.feed_names[0]
+    perturbed = dict(batch)
+    perturbed[image] = (batch[image] * (1.0 + RESNET_AMP_PERTURB)).astype(
+        batch[image].dtype)
+    fetch = [spec.loss] + [g for _, g in params_grads]
+    got, calls = {}, {"card": [], "planted": []}
+    fluid.enable_amp("bfloat16", keep_output=True)
+    try:
+        for run in ("card", "cpu", "cpu_perturbed", "planted"):
+            exe = fluid.Executor(fluid.CPUPlace() if run.startswith("cpu")
+                                 else None)
+            scope = fluid.Scope()
+            exe.load_state(init_state, scope)
+            with contextlib.ExitStack() as stack:
+                if run == "planted":
+                    stack.enter_context(_rounded_stats_fault(ce))
+                if run in calls:
+                    stack.enter_context(_recording_conv(nn_ops, calls[run]))
+                got[run] = exe.run(main, feed=perturbed
+                                   if run == "cpu_perturbed" else batch,
+                                   fetch_list=fetch, scope=scope)
+    finally:
+        fluid.disable_amp()
+    cpu = got["cpu"]
+    loss_cpu = float(cpu[0].reshape(-1)[0])
+    norms = [float(np.linalg.norm(b)) for b in cpu[1:]]
+
+    def distances(run):
+        vals = got[run]
+        loss = float(vals[0].reshape(-1)[0])
+        diffs = [float(np.linalg.norm(a - b))
+                 for a, b in zip(vals[1:], cpu[1:])]
+        rels = sorted(((d / max(n, 1e-30), g.name, n / max(norms))
+                       for (_, g), d, n in zip(params_grads, diffs, norms)),
+                      reverse=True)
+        return {"loss": loss, "loss_rel_err": abs(loss - loss_cpu)
+                / abs(loss_cpu),
+                "grad_norm_rel_err_median": rels[len(rels) // 2][0],
+                "grad_norm_rel_err_all_leaves": float(
+                    np.sqrt(sum(d * d for d in diffs))
+                    / np.sqrt(sum(n * n for n in norms))),
+                "grads_finite": all(bool(np.isfinite(a).all())
+                                    for a in vals[1:]),
+                "top5_rel_err_name_norm_over_largest": rels[:5]}
+
+    spread = distances("cpu_perturbed")
+
+    def gates(run):
+        d = distances(run)
+        d["model_ok"] = (
+            d["grads_finite"] and d["loss_rel_err"] <= RESNET_AMP_LOSS_RTOL
+            and all(d[k] <= RESNET_AMP_SPREAD * spread[k]
+                    for k in ("grad_norm_rel_err_median",
+                              "grad_norm_rel_err_all_leaves")))
+        d["conv_calls_vs_plain"] = _conv_calls_vs_plain(torch, ce,
+                                                        calls[run])
+        return d
+
+    out = {"form": "conv", "tier": "keep", "batch": PARITY_BATCH,
+           "loss_cpu": loss_cpu,
+           "tolerance": (f"loss rel <= {RESNET_AMP_LOSS_RTOL}; grads "
+                         f"|card - cpu| <= {RESNET_AMP_SPREAD} x |cpu "
+                         f"perturbed (image * (1 + {RESNET_AMP_PERTURB}))"
+                         " - cpu| in norm, median leaf and all leaves "
+                         "together; each conv_bn_add_act call vs the bf16 "
+                         "plain versions on the CPU: y max abs err <= "
+                         f"{BF16_ULP} * max |plain|, mismatch share <= "
+                         f"{MISMATCH_SHARE}, mean and var <= {PARITY_TOL} "
+                         "of the largest"),
+           "cpu_perturbed": spread, "card": gates("card"),
+           "planted_rounded_statistics": gates("planted")}
+    card = out["card"]
+    if not (card["model_ok"] and card["conv_calls_vs_plain"]["ok"]
+            and card["conv_calls_vs_plain"]["calls"] == 53):
+        raise AssertionError(f"resnet keep card vs CPU beyond tolerance: "
+                             f"{out}")
+    if out["planted_rounded_statistics"]["conv_calls_vs_plain"]["ok"]:
+        raise AssertionError(f"the rounded-statistics fault passed the "
+                             f"per-call gate: {out}")
+    return out
+
+
+def phase_conv_timing_bf16(torch, conv_err, launches):
+    """conv_stats_bf16 and bn_epilogue_bf16 at the fp32 rows' shapes (3x3/1
+    pad 1 [256, 56, 56, 64] -> 64, 1x1/1 -> 256, the 7x7/2 pad 3 stem;
+    the [256, 56, 56, 256] epilogue with the residual and relu).  In JAX a
+    bf16 input takes row 6's call for every conv (row 5's is fp32 only).
+    Bounds: bytes at 2-byte activations (4-byte [F] vectors) over 3.35
+    TB/s, flops over the dense bf16 tensor peak.  Library calls in bf16 on
+    channels-last tensors: F.conv2d + torch.var_mean; F.batch_norm + z,
+    relu_.  Launches are the AMP conv-tier runs' counts (amp1 and keep
+    together)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import conv_epilogue as ce
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    cl = torch.channels_last
+    rng = torch.Generator(device=dev).manual_seed(SEED + 9)
+    rows = []
+    for label, key in (("3x3/1 pad 1", (RESNET_BATCH, 56, 56, 64, 64, 3, 1,
+                                        1)),
+                       ("1x1/1", (RESNET_BATCH, 56, 56, 64, 256, 1, 1, 0)),
+                       ("7x7/2 pad 3 stem", (RESNET_BATCH, 224, 224, 3, 64,
+                                             7, 2, 3))):
+        N, H, W, C, Fo, K, s, p = key
+        x, w, _, _ = _conv_inputs(torch, rng, N, H, W, C, Fo, K, dev)
+        x, w = x.to(bf16), w.to(bf16)
+        xn = x.permute(0, 3, 1, 2)  # NCHW-shaped, channels-last memory
+        wn = w.permute(3, 2, 0, 1).contiguous(memory_format=cl)
+        nbytes, flops = _conv_stats_work(N, H, W, C, Fo, K, s, p, itemsize=2)
+        rows.append(_row(
+            "conv_stats_bf16",
+            "paddle_tpu_torch/kernels/csrc/conv_epilogue.cu",
+            "paddle_tpu/kernels/conv_epilogue.py:383",
+            sum(v["conv_stats"] for v in launches.values()),
+            conv_err["conv_stats"],
+            device_ms(torch, lambda: ce.conv_stats(x, w, s, p)),
+            device_ms(torch, lambda: ce.conv_stats_reference(x, w, s, p)),
+            nbytes, flops,
+            device_ms(torch, lambda: torch.var_mean(
+                F.conv2d(xn, wn, stride=s, padding=p), dim=(0, 2, 3),
+                unbiased=False)),
+            {"row": "row 6 (bf16): " + label, "x": [N, H, W, C],
+             "w": [K, K, C, Fo], "stride": s, "padding": p,
+             "dtype": "bfloat16",
+             "library_call": "F.conv2d (bf16, channels-last) + "
+                             "torch.var_mean"}, BF16_FLOPS_PER_S))
+        del x, w, xn, wn
+    N, H, W, Fo = RESNET_BATCH, 56, 56, 256
+    out = torch.randn(N, H, W, Fo, generator=rng, device=dev).to(bf16)
+    z = torch.randn(N, H, W, Fo, generator=rng, device=dev).to(bf16)
+    var, mean = torch.var_mean(out.float(), dim=(0, 1, 2), unbiased=False)
+    inv = torch.rsqrt(var + 1e-5)
+    gamma = torch.rand(Fo, generator=rng, device=dev) + 0.5
+    beta = torch.randn(Fo, generator=rng, device=dev)
+    on, zn = out.permute(0, 3, 1, 2), z.permute(0, 3, 1, 2)
+    epi = _row(
+        "bn_epilogue_bf16", "paddle_tpu_torch/kernels/csrc/conv_epilogue.cu",
+        "paddle_tpu/kernels/conv_epilogue.py:412",
+        sum(v["bn_epilogue"] for v in launches.values()),
+        conv_err["bn_epilogue"],
+        device_ms(torch, lambda: ce.bn_epilogue(out, mean, inv, gamma, beta,
+                                                z, "relu")),
+        device_ms(torch, lambda: ce.bn_epilogue_reference(
+            out, mean, inv, gamma, beta, z, "relu")),
+        2 * 3 * out.numel() + 4 * 4 * Fo, 6 * out.numel(),
+        device_ms(torch, lambda: torch.relu_(F.batch_norm(
+            on, mean, var, gamma, beta, False, 0.0, 1e-5) + zn)),
+        {"row": "row 7 (bf16)", "out": [N, H, W, Fo], "residual": True,
+         "act": "relu", "dtype": "bfloat16",
+         "library_call": "F.batch_norm(bf16, training=False) + z, relu_"},
+        BF16_FLOPS_PER_S)
+    emit({"phase": "conv_timing_bf16", "method": "CUDA events, median of 30 "
+          "after 5 warm-up calls, queued behind torch.cuda._sleep",
+          "launches_counted_over": f"{RESNET_STEPS} steps of the conv tier "
+          "under amp1 and under keep",
+          "rows": [{k: r[k] for k in ("name", "replaces", "launches", "ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms", "shape")}
+                   for r in rows + [epi]]})
+    first = dict(rows[0])
+    first["rows"] = [{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms", "shape")}
+                     for r in rows]
+    for r in (first, epi):
+        r.pop("shape")
+        r["launches_by_path"] = {
+            "resnet_" + k: v["conv_stats" if r is first else "bn_epilogue"]
+            for k, v in launches.items() if k.startswith("conv_")}
+    return [first, epi]
 
 
 # -- phase 6: timing -------------------------------------------------------
@@ -2807,12 +3416,13 @@ def phase_train_timing(torch, bwd_err, launches, cfg, batch, bf16=False):
     return fwd, rows_out
 
 
-def _conv_stats_work(N, H, W, C, Fo, K, s, p):
-    """(bytes, flops) of conv_stats: x, w read and out, sum, sumsq written
-    once; 2 flops per tap of every output, 3 per output for the sums."""
+def _conv_stats_work(N, H, W, C, Fo, K, s, p, itemsize=4):
+    """(bytes, flops) of conv_stats: x, w read and out written once at
+    ``itemsize`` bytes an element, the fp32 sum and sumsq once; 2 flops per
+    tap of every output, 3 per output for the sums."""
     Ho, Wo = (H + 2 * p - K) // s + 1, (W + 2 * p - K) // s + 1
     M = N * Ho * Wo
-    return (4 * (N * H * W * C + K * K * C * Fo + M * Fo + 2 * Fo),
+    return (itemsize * (N * H * W * C + K * K * C * Fo + M * Fo) + 4 * 2 * Fo,
             2 * M * K * K * C * Fo + 3 * M * Fo)
 
 
@@ -2864,7 +3474,7 @@ def phase_conv_timing(torch, conv_err, launches, by_shape, trace):
                 unbiased=False)),
             {"row": label, "x": [N, H, W, C], "w": [K, K, C, Fo],
              "stride": s, "padding": p,
-             "launches_at_this_shape": by_shape.get(key, 0),
+             "launches_at_this_shape": by_shape.get(key + ("float32",), 0),
              "library_call": "F.conv2d + torch.var_mean"}))
         del x, w, xn, wn
     N, H, W, Fo = RESNET_BATCH, 56, 56, 256
@@ -2949,6 +3559,7 @@ def main() -> int:
     bwd_err = phase_bwd_parity(torch)
     bf16_err = phase_bf16_parity(torch)
     conv_err = phase_conv_parity(torch, fluid)
+    conv_bf16_err = phase_conv_parity_bf16(torch, fluid)
     serve_launches, reqs = phase_main_path(torch, np)
     spec_launches, spec_reqs = phase_spec_main_path(torch, np)
     lc_launches = phase_longctx(torch, np)
@@ -2957,6 +3568,8 @@ def main() -> int:
     amp_launches, amp_batch, amp_cfg = phase_amp_training(torch, np)
     torch.cuda.empty_cache()
     conv_launches, by_shape, trace = phase_resnet(torch, np, fluid)
+    torch.cuda.empty_cache()
+    resnet_amp_launches = phase_resnet_amp(torch, np, fluid)
     kernels = phase_timing(torch, np, reqs, parity_err, serve_launches)
     kernels += phase_spec_timing(torch, np, spec_reqs, spec_err,
                                  spec_launches)
@@ -2979,6 +3592,8 @@ def main() -> int:
     kernels += [bf16_fwd] + bf16_bwd
     kernels += phase_conv_timing(torch, conv_err, conv_launches, by_shape,
                                  trace)
+    kernels += phase_conv_timing_bf16(torch, conv_bf16_err,
+                                      resnet_amp_launches)
     # flash_fwd runs on every path and paged_decode on both fp32 serving
     # paths: their launches are the counted runs' sums
     by_path = {"serving": serve_launches["flash_fwd"],

@@ -22,7 +22,10 @@ Every other op runs under ``torch.no_grad()``.  Each op's inputs are
 detached, so no autograd graph spans two ops.
 
 A rule may skip an output that nothing reads (``ctx.is_read``): the JAX
-package gets this from XLA's dead-code elimination.
+package gets this from XLA's dead-code elimination.  For the same reason a
+value leaves the environment after the last op that reads it (unless the
+caller keeps it): an activation gradient goes once its grad op has run,
+instead of living to the end of the step.
 """
 
 from __future__ import annotations
@@ -164,7 +167,13 @@ def run_block(ctx: LoweringContext, ops: Sequence[OpDesc],
               keep: Iterable[str] = ()) -> None:
     """Run ``ops`` in order against ``ctx.env``; ``keep`` names the vars
     the caller reads afterwards (fetches, scope state)."""
-    ctx.reads = set(keep).union(*(_names_looked_up(op) for op in ops))
+    keep = set(keep)
+    looked_up = [list(_names_looked_up(op)) for op in ops]
+    ctx.reads = keep.union(*looked_up)
+    last_read: Dict[str, int] = {}
+    for i, names in enumerate(looked_up):
+        for name in names:
+            last_read[name] = i
     wanted: Dict[int, Set[tuple]] = {}
     for op in ops:
         if "__fwd_op_uid__" in op.attrs:
@@ -173,7 +182,7 @@ def run_block(ctx: LoweringContext, ops: Sequence[OpDesc],
                 for slot, names in op.outputs.items()
                 if slot.endswith(GRAD_SUFFIX)
                 for pos, name in enumerate(names) if name)
-    for op in ops:
+    for i, op in enumerate(ops):
         if op.type in _SKIP_OPS:
             continue
         if _is_grad_op(op):
@@ -182,3 +191,6 @@ def run_block(ctx: LoweringContext, ops: Sequence[OpDesc],
             raise NotImplementedError(f"op '{op.type}' has no torch rule")
         else:
             _run_forward_op(ctx, op, wanted.get(op.attrs.get("__op_uid__")))
+        for name in looked_up[i] + op.output_arg_names():
+            if name not in keep and last_read.get(name, -1) <= i:
+                ctx.env.pop(name, None)

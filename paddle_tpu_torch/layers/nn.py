@@ -14,10 +14,11 @@ from ..initializer import (ConstantInitializer, NormalInitializer,
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
-__all__ = ["accuracy", "conv_bn_add_act", "cross_entropy", "dropout",
-           "elementwise_add", "elementwise_div", "elementwise_mul",
-           "embedding", "fc", "fused_attention", "layer_norm", "matmul",
-           "pool2d", "relu", "softmax", "softmax_with_cross_entropy", "topk"]
+__all__ = ["accuracy", "batch_norm", "conv2d", "conv_bn_add_act",
+           "cross_entropy", "dropout", "elementwise_add", "elementwise_div",
+           "elementwise_mul", "embedding", "fc", "fused_attention",
+           "fused_bn_add_act", "layer_norm", "matmul", "pool2d", "relu",
+           "softmax", "softmax_with_cross_entropy", "topk"]
 
 
 def _pair(x, n=2):
@@ -42,6 +43,41 @@ def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None,
         type="mul", inputs={"X": [input], "Y": [w]}, outputs={"Out": [out]},
         attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1})
     pre_act = helper.append_bias_op(out, dim_start=num_flatten_dims)
+    return helper.append_activation(pre_act)
+
+
+def conv2d(input, num_filters: int, filter_size, stride=1, padding=0,
+           dilation=1, groups: int = 1, param_attr=None, bias_attr=None,
+           use_cudnn: bool = True, act: Optional[str] = None,
+           name: Optional[str] = None):
+    """2-D convolution, NCHW: the ``conv2d`` op with an N(0, 2 / fan_in)
+    filter [num_filters, C / groups, kh, kw], then the bias (unless
+    ``bias_attr=False``) as ``elementwise_add`` on axis 1, then ``act``.
+    ``use_cudnn`` is accepted and ignored, as in the JAX package."""
+    helper = LayerHelper("conv2d", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    num_channels = input.shape[1]
+    fsize = _pair(filter_size)
+    fan_in = (num_channels // groups) * fsize[0] * fsize[1]
+    w = helper.create_parameter(
+        helper.param_attr,
+        shape=[num_filters, num_channels // groups] + fsize, dtype=dtype,
+        default_initializer=NormalInitializer(0.0, (2.0 / fan_in) ** 0.5))
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv2d", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={"strides": _pair(stride), "paddings": _pair(padding),
+               "dilations": _pair(dilation), "groups": groups})
+    pre_act = out
+    if helper.bias_attr is not None:
+        b = helper.create_parameter(helper.bias_attr, shape=[num_filters],
+                                    dtype=dtype, is_bias=True)
+        pre_act = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(type="elementwise_add",
+                         inputs={"X": [out], "Y": [b]},
+                         outputs={"Out": [pre_act]}, attrs={"axis": 1})
     return helper.append_activation(pre_act)
 
 
@@ -85,6 +121,63 @@ def _bn_state(helper, c, dtype, param_attr, bias_attr, moving_mean_name,
         dtype, stop_gradient=True)
     out = helper.create_variable_for_type_inference(dtype)
     return scale, bias, mean, variance, saved_mean, saved_var, out
+
+
+def _bn_build(helper, input, data_layout, moving_mean_name,
+              moving_variance_name):
+    """The state and slots batch_norm and fused_bn_add_act share: (inputs,
+    outputs, out var)."""
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale, bias, mean, variance, saved_mean, saved_var, out = _bn_state(
+        helper, c, input.dtype, helper.param_attr, helper.bias_attr,
+        moving_mean_name, moving_variance_name)
+    inputs = {"X": [input], "Scale": [scale], "Bias": [bias],
+              "Mean": [mean], "Variance": [variance]}
+    outputs = {"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+               "SavedMean": [saved_mean], "SavedVariance": [saved_var]}
+    return inputs, outputs, out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=False,
+               use_global_stats=False):
+    """Batch normalization; the moving mean and variance are persistable
+    state vars the op updates in the program."""
+    helper = LayerHelper("batch_norm", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    inputs, outputs, out = _bn_build(helper, input, data_layout,
+                                     moving_mean_name, moving_variance_name)
+    helper.append_op(
+        type="batch_norm", inputs=inputs, outputs=outputs,
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(out)
+
+
+def fused_bn_add_act(x, y=None, act="relu", is_test=False, momentum=0.9,
+                     epsilon=1e-5, param_attr=None, bias_attr=None,
+                     data_layout="NCHW", name=None, moving_mean_name=None,
+                     moving_variance_name=None, use_global_stats=False):
+    """batch_norm(x) [+ y] -> act as one op, tagged ``@recompute@``: its
+    backward keeps nothing op-internal (ops/nn_ops.py
+    ``fused_bn_add_act``)."""
+    helper = LayerHelper("fused_bn_add_act", input=x, param_attr=param_attr,
+                         bias_attr=bias_attr, act=None, name=name)
+    inputs, outputs, out = _bn_build(helper, x, data_layout,
+                                     moving_mean_name, moving_variance_name)
+    if y is not None:
+        inputs["Z"] = [y]
+    helper.append_op(
+        type="fused_bn_add_act", inputs=inputs, outputs=outputs,
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout,
+               "use_global_stats": use_global_stats, "act": act,
+               "@recompute@": True})
+    return out
 
 
 def conv_bn_add_act(input, num_filters, filter_size, residual=None,

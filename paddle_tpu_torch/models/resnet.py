@@ -1,12 +1,14 @@
-"""ResNet on the conv-epilogue tier (counterpart of
-paddle_tpu/models/resnet.py).
+"""ResNet (counterpart of paddle_tpu/models/resnet.py), in the JAX
+package's three forms of conv + batch norm, chosen by ``fuse_bn``:
 
-Only ``fuse_bn="conv"`` is ported: every conv + batch-norm [+ residual]
-[+ ReLU] is one ``conv_bn_add_act`` op, which runs the hand-written
-conv_stats and bn_epilogue kernels.  The JAX package's other two forms
-need rules the port does not have yet: ``fuse_bn=False`` (``conv2d``,
-``batch_norm``, ``elementwise_add`` + ``relu``) and ``fuse_bn=True``
-(``conv2d``, ``fused_bn_add_act``); both raise NotImplementedError.
+- ``False`` (the default, what bench.py runs unless BENCH_FUSE_BN is
+  set): ``conv2d`` (cuDNN), ``batch_norm``, then ``elementwise_add`` +
+  ``relu`` at the end of each block;
+- ``True``: ``conv2d`` and ``fused_bn_add_act`` (batch norm + residual +
+  ReLU in one op, tagged ``@recompute@``);
+- ``"conv"``: one ``conv_bn_add_act`` op per conv + batch norm [+
+  residual] [+ ReLU], which runs the hand-written conv_stats and
+  bn_epilogue kernels.
 """
 
 from __future__ import annotations
@@ -20,46 +22,57 @@ __all__ = ["basicblock", "bottleneck", "conv_bn_layer", "resnet_cifar10",
            "resnet_imagenet"]
 
 
-def _check_fuse_bn(fuse_bn) -> None:
-    if fuse_bn != "conv":
-        rules = ("conv2d and batch_norm" if not fuse_bn
-                 else "conv2d and fused_bn_add_act")
-        raise NotImplementedError(
-            f"ResNet with fuse_bn={fuse_bn!r} needs the {rules} rules, which "
-            "are not ported; use fuse_bn='conv'")
-
-
 def conv_bn_layer(input, ch_out, filter_size, stride, padding, act="relu",
-                  fuse_bn="conv"):
-    """conv -> BN (+act) as one conv_bn_add_act op."""
-    _check_fuse_bn(fuse_bn)
-    return layers.conv_bn_add_act(input, ch_out, filter_size, stride=stride,
-                                  padding=padding, act=act)
+                  fuse_bn=False):
+    """conv -> BN (+act), in the form ``fuse_bn`` names."""
+    if fuse_bn == "conv":
+        return layers.conv_bn_add_act(input, ch_out, filter_size,
+                                      stride=stride, padding=padding,
+                                      act=act)
+    conv = layers.conv2d(input=input, num_filters=ch_out,
+                         filter_size=filter_size, stride=stride,
+                         padding=padding, act=None, bias_attr=False)
+    if fuse_bn:
+        return layers.fused_bn_add_act(conv, act=act)
+    return layers.batch_norm(input=conv, act=act)
 
 
-def _shortcut(input, ch_out, stride, fuse_bn="conv"):
+def _shortcut(input, ch_out, stride, fuse_bn=False):
     if input.shape[1] != ch_out or stride != 1:
         return conv_bn_layer(input, ch_out, 1, stride, 0, act=None,
                              fuse_bn=fuse_bn)
     return input
 
 
-def basicblock(input, ch_out, stride, fuse_bn="conv"):
+def _tail(input, shortcut, ch_out, filter_size, padding, fuse_bn):
+    """The block's last conv + BN, the residual add and the ReLU."""
+    if fuse_bn == "conv":
+        return layers.conv_bn_add_act(input, ch_out, filter_size,
+                                      residual=shortcut, stride=1,
+                                      padding=padding, act="relu")
+    conv = layers.conv2d(input, num_filters=ch_out, filter_size=filter_size,
+                         stride=1, padding=padding, act=None,
+                         bias_attr=False)
+    if fuse_bn:
+        return layers.fused_bn_add_act(conv, shortcut, act="relu")
+    bn = layers.batch_norm(input=conv, act=None)
+    return layers.elementwise_add(shortcut, bn, act="relu")
+
+
+def basicblock(input, ch_out, stride, fuse_bn=False):
     s = _shortcut(input, ch_out, stride, fuse_bn=fuse_bn)
     conv1 = conv_bn_layer(input, ch_out, 3, stride, 1, fuse_bn=fuse_bn)
-    return layers.conv_bn_add_act(conv1, ch_out, 3, residual=s, stride=1,
-                                  padding=1, act="relu")
+    return _tail(conv1, s, ch_out, 3, 1, fuse_bn)
 
 
-def bottleneck(input, ch_out, stride, fuse_bn="conv"):
+def bottleneck(input, ch_out, stride, fuse_bn=False):
     s = _shortcut(input, ch_out * 4, stride, fuse_bn=fuse_bn)
     conv1 = conv_bn_layer(input, ch_out, 1, 1, 0, fuse_bn=fuse_bn)
     conv2 = conv_bn_layer(conv1, ch_out, 3, stride, 1, fuse_bn=fuse_bn)
-    return layers.conv_bn_add_act(conv2, ch_out * 4, 1, residual=s, stride=1,
-                                  padding=0, act="relu")
+    return _tail(conv2, s, ch_out * 4, 1, 0, fuse_bn)
 
 
-def _layer_warp(block_func, input, ch_out, count, stride, fuse_bn="conv"):
+def _layer_warp(block_func, input, ch_out, count, stride, fuse_bn=False):
     res = block_func(input, ch_out, stride, fuse_bn=fuse_bn)
     for _ in range(1, count):
         res = block_func(res, ch_out, 1, fuse_bn=fuse_bn)
@@ -72,7 +85,6 @@ def resnet_imagenet(img=None, label=None, depth: int = 50,
     """ImageNet-scale ResNet: 7x7/2 stem + max pool + 4 stages + global
     average pool + FC with softmax; cross-entropy loss, top-1 and top-5
     accuracy."""
-    _check_fuse_bn(fuse_bn)
     if img is None:
         img = layers.data("image", list(img_shape), dtype="float32")
     if label is None:
@@ -114,7 +126,6 @@ def resnet_imagenet(img=None, label=None, depth: int = 50,
 def resnet_cifar10(img=None, label=None, depth: int = 32,
                    class_num: int = 10, fuse_bn=False) -> ModelSpec:
     """CIFAR-scale ResNet (6n+2 basicblock layout)."""
-    _check_fuse_bn(fuse_bn)
     if img is None:
         img = layers.data("image", [3, 32, 32], dtype="float32")
     if label is None:

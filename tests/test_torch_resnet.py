@@ -113,16 +113,29 @@ def test_resnet50_main_program_has_53_conv_ops(programs):
     assert len(programs["torch"][3]) == 161
 
 
-# -- what the port does not run ----------------------------------------------
+# -- the other two forms, and what the port does not run --------------------
 
 @pytest.mark.parametrize("fuse_bn", [False, True])
-def test_unported_fuse_bn_forms_raise(fuse_bn):
-    for builder in (tres.resnet_imagenet, tres.resnet_cifar10):
-        main, startup = tfluid.Program(), tfluid.Program()
-        with tguard(), tfluid.program_guard(main, startup):
-            with pytest.raises(NotImplementedError, match="not ported"):
-                builder(fuse_bn=fuse_bn)
-        assert not main.desc.block(0).ops  # raised before building
+def test_fuse_bn_forms_build_jax_descs(fuse_bn):
+    """The unfused (conv2d, batch_norm, elementwise_add + relu) and fused
+    (conv2d, fused_bn_add_act) forms of both builders, at their default
+    sizes: main and startup descs equal to JAX's after uid
+    canonicalisation."""
+    for builder in ("resnet_imagenet", "resnet_cifar10"):
+        built = []
+        for fluid, guard, res in ((jfluid, jguard, jres),
+                                  (tfluid, tguard, tres)):
+            main, startup = fluid.Program(), fluid.Program()
+            with guard(), fluid.program_guard(main, startup):
+                spec = getattr(res, builder)(fuse_bn=fuse_bn)
+                fluid.optimizer.MomentumOptimizer(
+                    learning_rate=0.1, momentum=0.9).minimize(spec.loss)
+            built.append((canonical(main), canonical(startup)))
+        assert built[1] == built[0], builder
+        ops = [op["type"] for op in built[1][0]["blocks"][0]["ops"]]
+        assert "conv_bn_add_act" not in ops
+        assert ops.count("conv2d") == ops.count(
+            "fused_bn_add_act" if fuse_bn else "batch_norm") > 0
 
 
 @pytest.mark.parametrize("attrs", [{"is_test": True},
