@@ -55,6 +55,17 @@ prints no final result line):
    residual left unrounded, which must fail everywhere); and the bf16
    kernels against the fp32 kernels on the same values (out within half
    a bf16 ulp, y within 2^-8 (|y| + |inv gamma out|) elementwise).
+   The bf16 entries of the paged kernel (``paged_decode_bf16``,
+   ``paged_verify_bf16``, ``paged_walk_bf16``) against
+   ``paged_bf16_reference`` on pages a bf16 pool's write_kv filled: flat,
+   explicit starts + window + sinks over compacted tables, and two-level
+   walks; Sq 1 and 5 (ragged q_lengths); G 1 and 2; pages of 16 and 24;
+   B 8, H_q 8, D 64, at the serving lengths and at a 4080-token context:
+   within 2^-7 * max |plain|, at most 1% of the elements not bit-equal;
+   the three planted faults of the plain version (running max per 64-slot
+   chunk, l from the rounded p, q unrounded) must each fail that gate in
+   every case; and each bf16 launch against the fp32 entry on the same
+   pages widened to fp32, within 2^-5 * max |fp32|.
 3. Serving at the Transformer-base width (vocab 10000, d_model 512,
    8 heads, 6 layers, d_inner 2048, max_length 256; random weights from a
    seed): ``ContinuousBatchingLoop.run`` on 16 requests (prompts of 16-128
@@ -91,7 +102,25 @@ prints no final result line):
    the same arm through the plain versions and (two requests)
    full_decode under the same window by the near-tie rule, and the flat
    and two-level arms each other exactly.  Decode-step wall and device
-   time (torch.profiler) of the first three arms side by side.
+   time (torch.profiler) of the first three arms side by side.  Then the
+   windowed arms (flat starts and two-level) once more over a bf16 pool,
+   gated the same way against their bf16 plain runs, the bf16 walk
+   launches counted, and the logit distance to the fp32 pool reported.
+   Then shared-prefix serving at the Transformer-base width:
+   tools/serve_bench.py's --prefix-share 0.75 traffic (32 requests, a
+   96-token system prompt with 1-32 token tails, others 16-128 tokens;
+   four of them extend an earlier prompt, so they attach its partly
+   filled page and copy it), max_batch 8, prefill_chunk 64, four counted
+   runs: bf16 pool + PrefixCache, fp32 pool + PrefixCache, bf16 without
+   a cache, bf16 + PrefixCache with speculate=4.  Tokens and the prefix
+   counters (hits, misses, cached tokens, prefill steps and tokens, the
+   largest step's prefill tokens <= 64, copy-on-write copies, attached
+   pages) equal the same run through the plain versions on the card;
+   cow_copies >= 1 in a cached run; launches steps x n_layer of the pool
+   dtype's decode / verify entries and none of any other; the pool empty
+   after ``cache.clear()``.  Tokens/s, host-clock time to first token,
+   prefill tokens, pages allocated and pool bytes a token per run, and a
+   profiled run's busy share.
 4. Training through the fluid entry points: ``TransformerConfig()`` with
    flash attention on and dropout off, ``MomentumOptimizer(1e-4,
    0.9).minimize``, ``Executor().run(startup)``, then ten
@@ -190,7 +219,10 @@ prints no final result line):
    SDPA in bf16); the bf16 entries of conv_stats (row 6: in JAX every bf16
    conv takes it) at rows 5 and 6's shapes and bn_epilogue at row 7's,
    bytes at 2-byte activations, flops over the bf16 peak, the library
-   calls in bf16 on channels-last tensors.
+   calls in bf16 on channels-last tensors; the bf16 entries of rows 4a
+   (serving shape and a 4080-token context), 4b (Sq 5), 4d and 4e (34
+   live pages) at the fp32 rows' shapes, bytes at 2-byte pages, SDPA in
+   bf16.
 
 Each phase prints one JSON line; the line before the last is the
 ``kernels`` summary and the last line is exactly
@@ -542,8 +574,11 @@ def _plain_decoder_cls(serving):
     paged_windowed_reference."""
     from torch import is_tensor as torch_is_tensor
 
+    from torch import bfloat16
+
     from paddle_tpu_torch.kernels.flash_attention import reference_attention
     from paddle_tpu_torch.kernels.paged_attention import (
+        paged_bf16_reference,
         paged_decode_reference,
         paged_verify_reference,
         paged_windowed_reference,
@@ -558,6 +593,11 @@ def _plain_decoder_cls(serving):
 
         def attend_decode(self, q, k_pages, v_pages, tables, lengths,
                           k_scales=None, v_scales=None, **walk):
+            if k_pages.dtype == bfloat16:
+                return paged_bf16_reference(
+                    q, k_pages, v_pages, tables, lengths, None,
+                    walk.get("page_starts"), walk.get("windows"),
+                    walk.get("sinks"), self.cfg.head_dim ** -0.5)
             if walk or not torch_is_tensor(tables):
                 return paged_windowed_reference(
                     q, k_pages, v_pages, tables, lengths, None,
@@ -570,6 +610,11 @@ def _plain_decoder_cls(serving):
 
         def attend_verify(self, q, k_pages, v_pages, tables, lengths,
                           q_lengths, k_scales=None, v_scales=None, **walk):
+            if k_pages.dtype == bfloat16:
+                return paged_bf16_reference(
+                    q, k_pages, v_pages, tables, lengths, q_lengths,
+                    walk.get("page_starts"), walk.get("windows"),
+                    walk.get("sinks"), self.cfg.head_dim ** -0.5)
             if walk or not torch_is_tensor(tables):
                 return paged_windowed_reference(
                     q, k_pages, v_pages, tables, lengths, q_lengths,
@@ -696,7 +741,8 @@ def phase_main_path(torch, np):
     return launches, reqs
 
 
-def _trace(torch, serving, model, cfg, reqs, unprofiled_wall, **loop_kw):
+def _trace(torch, serving, model, cfg, reqs, unprofiled_wall,
+           prefix_dtype=None, **loop_kw):
     """One more run of the same requests under torch.profiler.  Device
     busy time is the summed time of the device's own events (kernels,
     copies, fills; one stream, so they never overlap) — the host-side
@@ -708,7 +754,12 @@ def _trace(torch, serving, model, cfg, reqs, unprofiled_wall, **loop_kw):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    loop = serving.ContinuousBatchingLoop(model, cfg, _new_pool(serving, cfg),
+    if prefix_dtype is None:
+        pool = _new_pool(serving, cfg)
+    else:  # the shared-prefix phase's pool, with a PrefixCache
+        pool = _prefix_pool(serving, cfg, prefix_dtype)
+        loop_kw["prefix_cache"] = serving.PrefixCache(pool)
+    loop = serving.ContinuousBatchingLoop(model, cfg, pool,
                                           max_batch=MAX_BATCH, **loop_kw)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -788,7 +839,7 @@ def phase_spec_parity(torch):
     qlens = torch.tensor([q for _, q in SPEC_LENS], dtype=torch.int32,
                          device=dev)
     cases = []
-    errs = {v: [] for v in pa.VARIANTS if v != "decode_f32"}
+    errs = {v: [] for v in ("verify_f32", "decode_i8", "verify_i8")}
 
     def record(variant, name, got, want):
         err = float((got - want).abs().max())
@@ -1079,16 +1130,15 @@ def _lc_windows(torch, dev):
 
 
 def _lc_pool(torch, serving, rng, Hq, Hkv, D, dtype, dev, windows=None,
-             sinks=None):
-    """One layer of a pool filled through write_kv at LC_PARITY_LENS (in
-    two rounds, the second at twice the magnitude: an int8 page's content
+             sinks=None, lengths=LC_PARITY_LENS, page_size=PAGE_SIZE):
+    """One layer of a pool filled through write_kv at `lengths` (in two
+    rounds, the second at twice the magnitude: an int8 page's content
     re-quantizes).  With windows, each windowed row's interior is evicted
     before its last SPEC_D + 1 tokens are appended, as the loop evicts
     before a step's appends.  Returns (pool, ids)."""
-    lengths = LC_PARITY_LENS
     tail = SPEC_D + 1
-    pages = sum(-(-n // PAGE_SIZE) for n in lengths) + 4
-    pool = serving.KVCachePool(pages, PAGE_SIZE, 1, Hq, D, num_kv_heads=Hkv,
+    pages = sum(-(-n // page_size) for n in lengths) + 4
+    pool = serving.KVCachePool(pages, page_size, 1, Hq, D, num_kv_heads=Hkv,
                                dtype=dtype)
     ids = list(range(len(lengths)))
     for s in ids:
@@ -1219,6 +1269,139 @@ def phase_longctx_parity(torch):
     return {k: max(v) for k, v in errs.items()}
 
 
+# bf16 paged parity (kernel row 4 in bf16): lengths at the serving shape
+# and at a 4080-token context, pages of 16 and 24 slots (24 does not divide
+# the kernel's 64-slot chunk), G 1 and 2 at D 64, B 8
+BF16_PARITY_LENS = {"serving": [144, 33, 66, 18, 150, 99, 120, 47],
+                    "ctx4080": [4080, 3001, 1500, 700, 530, 100, 17, 5]}
+BF16_PARITY_PAGES = (16, 24)
+BF16_PARITY_HEADS = ((8, 8), (8, 4))  # (H_q, H_kv)
+BF16_TL_BLOCK = 4  # two-level blocks of 4 pages: several blocks a row
+# bf16 entry against the fp32 entry on the same bf16-valued pages: the
+# rounding of q, p and the output moves an output by about 2^-8 of the
+# largest; bound 2^-5 * max |fp32|
+BF16_VS_FP32_PAGED = 2.0 ** -5
+
+
+def _rows_gate(got, want, rows):
+    """_bf16_gate over the valid rows (t < q_lengths) only."""
+    m = rows.expand_as(got)
+    return _bf16_gate(got[m], want[m])
+
+
+def phase_bf16_paged_parity(torch):
+    """The bf16 entries of the paged kernel (decode_bf16, verify_bf16,
+    walk_bf16) against paged_bf16_reference on pages the bf16 pool's
+    write_kv filled: the flat walk, explicit starts with the window + sink
+    mask over tables compacted by evict_interior, and two-level tables of
+    4-page blocks; Sq 1 and 5 (ragged q_lengths); G 1 and 2; pages of 16
+    and 24; at the serving lengths and at a 4080-token context; B 8, H_q
+    8, D 64.  Gate (valid rows): within 2^-7 * max |plain|, at most 1% of
+    the elements not bit-equal.  Each of the three planted faults of the
+    plain version (paged_attention.BF16_FAULTS: max per 64-slot chunk, l
+    from the rounded p, q unrounded) must fail that gate in every case.
+    And each bf16 launch against the fp32 entry on the same pages widened
+    to fp32: within BF16_VS_FP32_PAGED * max |fp32|."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    dev = torch.device("cuda")
+    rng = torch.Generator(device=dev).manual_seed(SEED + 9)
+    win, snk = _lc_windows(torch, dev)
+    qlens = torch.tensor(LC_PARITY_QLENS, dtype=torch.int32, device=dev)
+    D = 64
+    cases, faults, vs_fp32 = [], [], []
+    errs = {"decode_bf16": [], "verify_bf16": [], "starts": [],
+            "two_level": []}
+
+    def on_dev(*arrays):
+        return [torch.as_tensor(a, device=dev) for a in arrays]
+
+    for lname, lengths in BF16_PARITY_LENS.items():
+        B = len(lengths)
+        for ps in BF16_PARITY_PAGES:
+            for Hq, Hkv in BF16_PARITY_HEADS:
+                full, ids = _lc_pool(torch, serving, rng, Hq, Hkv, D,
+                                     "bfloat16", dev, lengths=lengths,
+                                     page_size=ps)
+                ev, _ = _lc_pool(torch, serving, rng, Hq, Hkv, D, "bfloat16",
+                                 dev, win, snk, lengths=lengths,
+                                 page_size=ps)
+                t_f, ln_f = on_dev(*full.page_table_batch(ids))
+                t_s, st, ln_s = on_dev(*ev.page_tables_with_starts(ids))
+                tl, ln_tl = ev.two_level_tables(ids, BF16_TL_BLOCK)
+                wk = {"windows": win, "sinks": snk}
+                walks = [("flat", full, t_f, ln_f, {}),
+                         ("starts", ev, t_s, ln_s, dict(wk, page_starts=st)),
+                         ("two_level", ev, _two_level_on(torch, pa, tl, dev),
+                          on_dev(ln_tl)[0], wk)]
+                for sq in (1, SPEC_D + 1):
+                    q = torch.randn(B, Hq, sq, D, generator=rng, device=dev)
+                    ql = qlens if sq > 1 else None
+                    rows = _valid_rows(torch, qlens, sq, dev)
+                    for walk, pool, t, ln, kw in walks:
+                        kp, vp = pool.k_pages[0], pool.v_pages[0]
+                        got = pa.paged_decode_attention(q, kp, vp, t, ln,
+                                                        q_lengths=ql, **kw)
+
+                        def plain(fault=None):
+                            return pa.paged_bf16_reference(
+                                q, kp, vp, t, ln, ql, kw.get("page_starts"),
+                                kw.get("windows"), kw.get("sinks"),
+                                D ** -0.5, fault=fault)
+
+                        name = f"{lname}_ps{ps}_G{Hq // Hkv}_sq{sq}_{walk}"
+                        g = _rows_gate(got, plain(), rows)
+                        cases.append(dict(case=name, **g))
+                        key = (walk if walk != "flat" else
+                               "verify_bf16" if sq > 1 else "decode_bf16")
+                        errs[key].append(g["max_abs_err"])
+                        for f in pa.BF16_FAULTS:
+                            faults.append(dict(case=name, fault=f,
+                                               **_rows_gate(got, plain(f),
+                                                            rows)))
+                        f32 = pa.paged_decode_attention(
+                            q, kp.float(), vp.float(), t, ln, q_lengths=ql,
+                            **kw)
+                        m = rows.expand_as(got)
+                        vs_fp32.append({
+                            "case": name,
+                            "max_abs_diff": float((got - f32)[m].abs().max()),
+                            "bound": BF16_VS_FP32_PAGED
+                            * float(f32[m].abs().max())})
+                del full, ev
+    emit({"phase": "bf16_paged_parity", "tolerance": f"max abs err <= "
+          f"{BF16_ULP} * max |plain| and at most {MISMATCH_SHARE} of the "
+          "elements not bit-equal, valid rows; each planted fault must "
+          f"fail it; against fp32: <= {BF16_VS_FP32_PAGED} * max |fp32|",
+          "lengths": BF16_PARITY_LENS, "q_lengths_at_sq5": LC_PARITY_QLENS,
+          "windows": win.tolist(), "sinks": snk.tolist(),
+          "max_mismatch_share": max(c["mismatch_share"] for c in cases),
+          "max_err_over_bound": max(c["max_abs_err"] / c["bound"]
+                                    for c in cases),
+          "faults_min_share": {f: min(x["mismatch_share"] for x in faults
+                                      if x["fault"] == f)
+                               for f in pa.BF16_FAULTS},
+          "faults_max_share": {f: max(x["mismatch_share"] for x in faults
+                                      if x["fault"] == f)
+                               for f in pa.BF16_FAULTS},
+          "vs_fp32_max_diff_over_bound": max(
+              c["max_abs_diff"] / c["bound"] for c in vs_fp32),
+          "vs_fp32_max_diff_over_max": max(
+              c["max_abs_diff"] / c["bound"] * BF16_VS_FP32_PAGED
+              for c in vs_fp32),
+          "cases": cases})
+    bad = [c for c in cases if not c["ok"]]
+    caught = [c for c in faults if c["ok"]]
+    far = [c for c in vs_fp32 if not c["max_abs_diff"] <= c["bound"]]
+    if bad or caught or far:
+        raise AssertionError(
+            f"bf16 paged parity: {len(bad)} cases beyond the gate "
+            f"{bad[:3]}; {len(caught)} planted faults passed it "
+            f"{caught[:3]}; {len(far)} beyond the fp32 bound {far[:3]}")
+    return {k: max(v) for k, v in errs.items()}
+
+
 def make_longctx_requests(serving, np, window=None, motif=False):
     """MAX_BATCH requests of exactly LC_PROMPT tokens and MAX_NEW new
     tokens each (tools/serve_bench.py --context-len's shape): random
@@ -1277,7 +1460,7 @@ def _lc_gate(np, cfg, loop, pool, results, launches, name, walk, windowed,
     from paddle_tpu_torch.kernels.paged_attention import TABLE_WALKS, VARIANTS
 
     n = loop.decode_steps * cfg.n_layer
-    sfx = "_i8" if dtype == "int8" else "_f32"
+    sfx = POOL_SFX[dtype]
     want = {"flash_fwd": loop.prefill_steps * cfg.n_layer,
             "by_table": {w: n if w == walk else 0 for w in TABLE_WALKS},
             "by_variant": {v: 0 for v in VARIANTS},
@@ -1464,6 +1647,287 @@ def phase_longctx(torch, np):
     return launches
 
 
+def phase_longctx_bf16(torch, np):
+    """The windowed long-context traffic of phase_longctx (MAX_BATCH prompts
+    of LC_PROMPT tokens, window 512 + 16 sinks, MAX_NEW new tokens) over a
+    bf16 pool, on flat tables with explicit starts and on two-level tables
+    of 16-page blocks.  Gated as the fp32 arms are (_lc_gate: launches by
+    walk and by variant, the bf16 entries only, eviction and the walk's
+    width, the pool clean), tokens against the same arm through the plain
+    versions on the card (paged_bf16_reference) by the near-tie rule, and
+    the two arms against each other exactly; the logit distance to the
+    fp32 two-level arm's tokens is reported."""
+    from paddle_tpu_torch import serving
+
+    cfg = serving.DecodeConfig(**dict(CFG, max_length=LC_MAX_LENGTH))
+    params = serving.init_decode_params(cfg, seed=SEED)
+    model = serving.TransformerDecoder(cfg).load_jax_params(params)
+    plain = _plain_decoder_cls(serving)(cfg).load_jax_params(params)
+    wreqs = make_longctx_requests(serving, np, window=LC_WINDOW)
+    out, launches, res_by = {}, {}, {}
+    for arm, walk, kw in (("bf16_windowed_flat", "starts", {}),
+                          ("bf16_windowed_two_level", "two_level",
+                           {"table_block": LC_BLOCK})):
+        loop, pool, res, wall, launches[arm] = _lc_counted(
+            torch, serving, model, cfg, wreqs, dtype="bfloat16", **kw)
+        _lc_gate(np, cfg, loop, pool, res, launches[arm], arm, walk, True,
+                 dtype="bfloat16")
+        out[arm] = dict(_lc_summary(loop, wall, pool),
+                        pool_bytes_per_token=pool.bytes_per_page()
+                        / PAGE_SIZE)
+        del pool
+        want = serving.ContinuousBatchingLoop(
+            plain, cfg, _lc_new_pool(serving, cfg, "bfloat16"),
+            max_batch=MAX_BATCH, **kw).run(wreqs)
+        diff, ties = _compare_tokens(res, want)
+        out[arm + "_vs_plain"] = {"max_abs_logit_diff": diff,
+                                  "near_ties": ties}
+        res_by[arm] = res
+    flat, two = (res_by["bf16_windowed_flat"],
+                 res_by["bf16_windowed_two_level"])
+    if [r.tokens for r in flat] != [r.tokens for r in two]:
+        raise AssertionError("bf16 windowed arms: flat and two-level tokens "
+                             "differ")
+    f32 = serving.ContinuousBatchingLoop(
+        model, cfg, _lc_new_pool(serving, cfg), max_batch=MAX_BATCH,
+        table_block=LC_BLOCK).run(wreqs)
+    out["two_level_vs_fp32_pool"] = {
+        "max_abs_logit_diff": _logit_distance(np, two, f32),
+        "same_tokens": sum(a.tokens == b.tokens for a, b in zip(two, f32))}
+    emit({"phase": "longctx_bf16", "config": dict(CFG,
+                                                  max_length=LC_MAX_LENGTH),
+          "max_batch": MAX_BATCH, "page_size": PAGE_SIZE,
+          "prompt_len": LC_PROMPT, "max_new_tokens": MAX_NEW,
+          "window": LC_WINDOW, "sinks": LC_SINKS, "table_block": LC_BLOCK,
+          "launches": launches, "arms": out})
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- phase 3e: shared-prefix serving over bf16 pools ---------------------------
+
+PREFIX_REQUESTS = 32
+PREFIX_SHARE = 0.75    # tools/serve_bench.py --prefix-share
+PREFIX_CHUNK = 64      # prefill_chunk: prefill tokens one step may take
+PREFIX_REPEATS = 4     # requests that extend an earlier prompt
+POOL_SFX = {"float32": "_f32", "int8": "_i8", "bfloat16": "_bf16"}
+PREFIX_AB_ORDER = ("float32", "bfloat16", "bfloat16", "float32", "float32",
+                   "bfloat16")
+# the four counted runs: (name, pool dtype, prefix cache, speculate)
+PREFIX_RUNS = (("bf16_cache", "bfloat16", True, 0),
+               ("fp32_cache", "float32", True, 0),
+               ("bf16_no_cache", "bfloat16", False, 0),
+               ("bf16_cache_spec", "bfloat16", True, SPEC_D))
+
+
+def make_prefix_requests(serving, np):
+    """tools/serve_bench.py's decode traffic (``_decode_requests``) with
+    --prefix-share 0.75 at --prompt-range 16,128, --max-len 256, --max-new
+    32: one system prompt of 96 tokens (3/4 of the longest prompt) opens a
+    request with probability 0.75, followed by 1-32 random tokens; the
+    others are 16-128 random tokens.  PREFIX_REQUESTS - PREFIX_REPEATS
+    requests from that generator, then PREFIX_REPEATS that extend one of
+    the first MAX_BATCH prompts (one whose length is not a page multiple)
+    by 1-8 tokens, at evenly spaced places after the first batch: such a
+    request matches the earlier prompt's partly filled last page, which it
+    attaches and copies on its first append.  (A verbatim repeat would
+    match whole pages only: a match leaves the last prompt token
+    uncached.)"""
+    rng = np.random.RandomState(SEED)
+    lo, hi = PROMPT_RANGE
+    hi = min(hi, CFG["max_length"] - MAX_NEW)
+    sys_prompt = rng.randint(1, CFG["vocab_size"],
+                             size=max(1, int(hi * 0.75))).tolist()
+    prompts = []
+    for _ in range(PREFIX_REQUESTS - PREFIX_REPEATS):
+        if rng.rand() < PREFIX_SHARE:
+            tail = int(rng.randint(1, max(2, hi - len(sys_prompt) + 1)))
+            prompts.append(sys_prompt + rng.randint(
+                1, CFG["vocab_size"], size=tail).tolist())
+        else:
+            n = int(rng.randint(lo, max(lo + 1, hi + 1)))
+            prompts.append(rng.randint(1, CFG["vocab_size"],
+                                       size=n).tolist())
+    bases = [p for p in prompts[:MAX_BATCH] if len(p) % PAGE_SIZE]
+    step = (len(prompts) - MAX_BATCH) // PREFIX_REPEATS
+    for i in range(PREFIX_REPEATS):
+        extra = rng.randint(1, CFG["vocab_size"],
+                            size=int(rng.randint(1, 9))).tolist()
+        prompts.insert(MAX_BATCH + (i + 1) * step + i,
+                       bases[i % len(bases)] + extra)
+    return [serving.DecodeRequest(prompt=p, max_new_tokens=MAX_NEW)
+            for p in prompts]
+
+
+def _prefix_pool(serving, cfg, dtype):
+    """Room for every request's worst case at once, so the cache keeps
+    every entry (no pressure eviction) and the repeats find their pages."""
+    per_seq = -(-(PROMPT_RANGE[1] + 8 + MAX_NEW) // PAGE_SIZE)
+    return serving.KVCachePool(
+        num_pages=PREFIX_REQUESTS * per_seq + 16, page_size=PAGE_SIZE,
+        num_layers=cfg.n_layer, num_heads=cfg.n_head, head_dim=cfg.head_dim,
+        num_kv_heads=cfg.num_kv_heads, dtype=dtype)
+
+
+def _prefix_run(torch, serving, model, cfg, reqs, dtype, cached, d):
+    """One loop run of the shared-prefix traffic with every counter zeroed
+    just before it and read just after.  Returns (loop, pool, cache,
+    results, wall_s, t0, launches)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    pool = _prefix_pool(serving, cfg, dtype)
+    cache = serving.PrefixCache(pool) if cached else None
+    loop = serving.ContinuousBatchingLoop(model, cfg, pool,
+                                          max_batch=MAX_BATCH,
+                                          prefix_cache=cache,
+                                          prefill_chunk=PREFIX_CHUNK,
+                                          speculate=d)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    pa.reset_launches()
+    t0 = time.perf_counter()
+    results = loop.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(pa.paged_decode_attention.launches_by_variant,
+                    flash_fwd=fa.flash_attention.launches)
+    return loop, pool, cache, results, wall, t0, launches
+
+
+PREFIX_COUNTERS = ("prefix_hits", "prefix_misses", "cached_prefill_tokens",
+                   "prefill_steps", "prefill_tokens",
+                   "max_prefill_tokens_step")
+
+
+def phase_prefix_serving(torch, np):
+    """Shared-prefix serving at the Transformer-base width: the
+    make_prefix_requests traffic (32 requests, MAX_NEW new tokens each),
+    max_batch 8, page 16, prefill_chunk 64, in four counted runs:
+    bf16 pool + PrefixCache; fp32 pool + PrefixCache; bf16 pool without a
+    cache; bf16 pool + PrefixCache with speculate=4.  Each run against the
+    same run through the plain versions on the card: tokens by the
+    near-tie rule, and prefix_hits, prefix_misses, cached_prefill_tokens,
+    prefill_steps, prefill_tokens, max_prefill_tokens_step (<= 64) and the
+    pool's cow_copies and shared_attach_pages equal.  A cached run copies
+    at least one shared page (cow_copies >= 1); after cache.clear() the
+    pool is empty with its invariants ok.  Launches: decode and verify
+    steps x n_layer of the run's dtype variants and none of any other
+    (so a bf16 run launches only bf16 entries, the fp32 run none of
+    them); no flash launch (every prompt prefills in chunk steps).  Per
+    run: tokens/s, host-clock time to first token (from admission, and
+    from the run's start) p50 and p99, prefill tokens, pages allocated,
+    pool bytes per token; the bf16 cached run once more under
+    torch.profiler for the busy share."""
+    from paddle_tpu_torch import serving
+
+    cfg = serving.DecodeConfig(**CFG)
+    params = serving.init_decode_params(cfg, seed=SEED)
+    model = serving.TransformerDecoder(cfg).load_jax_params(params)
+    plain = _plain_decoder_cls(serving)(cfg).load_jax_params(params)
+    reqs = make_prefix_requests(serving, np)
+    # warm-up: the chunk step's einsums and the bf16 entries, once
+    warm = _prefix_pool(serving, cfg, "bfloat16")
+    serving.ContinuousBatchingLoop(
+        model, cfg, warm, max_batch=MAX_BATCH,
+        prefix_cache=serving.PrefixCache(warm),
+        prefill_chunk=PREFIX_CHUNK).run(reqs[:MAX_BATCH])
+    del warm
+    out, launches = {}, {}
+    for name, dtype, cached, d in PREFIX_RUNS:
+        loop, pool, cache, res, wall, t0, launches[name] = _prefix_run(
+            torch, serving, model, cfg, reqs, dtype, cached, d)
+        n = cfg.n_layer
+        sfx = POOL_SFX[dtype]
+        want = {k: 0 for k in launches[name]}
+        want["verify" + sfx] = loop.spec_steps * n
+        want["decode" + sfx] = (loop.decode_steps - loop.spec_steps) * n
+        if launches[name] != want or not want["decode" + sfx] \
+                or (d and not want["verify" + sfx]):
+            raise AssertionError(f"{name}: launches {launches[name]}, want "
+                                 f"{want}")
+        stats = pool.stats()
+        if cache is not None:
+            if not (stats["cow_copies"] >= 1 and loop.prefix_hits > 0):
+                raise AssertionError(f"{name}: {loop.prefix_hits} hits, "
+                                     f"{stats['cow_copies']} cow copies")
+            cache.clear()
+        if loop.max_prefill_tokens_step > PREFIX_CHUNK:
+            raise AssertionError(f"{name}: a step prefilled "
+                                 f"{loop.max_prefill_tokens_step} tokens")
+        _check_run(np, cfg, loop, pool, res, name)
+        # the same run through the plain versions on the card
+        ploop, ppool, _, pres = _prefix_run(torch, serving, plain, cfg,
+                                            reqs, dtype, cached, d)[:4]
+        diff, ties = _compare_tokens(res, pres)
+        got = {k: getattr(loop, k) for k in PREFIX_COUNTERS}
+        got.update(cow_copies=stats["cow_copies"],
+                   shared_attach_pages=stats["shared_attach_pages"])
+        ref = {k: getattr(ploop, k) for k in PREFIX_COUNTERS}
+        ref.update(cow_copies=ppool.stats()["cow_copies"],
+                   shared_attach_pages=ppool.stats()["shared_attach_pages"])
+        if got != ref and not ties:  # a near-tie may move admissions
+            raise AssertionError(f"{name}: counters {got} vs plain {ref}")
+        ttft = [r.ttft_s for r in res]
+        first = [r.admitted_at + r.ttft_s - t0 for r in res]
+        n_tok = sum(len(r.tokens) for r in res)
+        out[name] = {
+            "pool": dtype, "prefix_cache": cached, "speculate": d,
+            "counters": got, "plain_counters": ref,
+            "steps": loop.steps, "decode_steps": loop.decode_steps,
+            "spec_steps": loop.spec_steps,
+            "accepted_tokens": loop.accepted_tokens,
+            "wall_s": wall, "tokens_per_s": n_tok / wall,
+            "ttft_from_admission_ms": {
+                "p50": 1e3 * float(np.percentile(ttft, 50)),
+                "p99": 1e3 * float(np.percentile(ttft, 99))},
+            "ttft_from_run_start_ms": {
+                "p50": 1e3 * float(np.percentile(first, 50)),
+                "p99": 1e3 * float(np.percentile(first, 99))},
+            "prefill_tokens": loop.prefill_tokens,
+            "pages_allocated": stats["page_allocs"],
+            "used_pages_high_water": stats["used_pages_high_water"],
+            "pool_bytes_per_token": pool.bytes_per_page() / PAGE_SIZE,
+            "prefill_step_ms_median": 1e3 * statistics.median(
+                loop.prefill_step_s),
+            "decode_step_ms_median": (1e3 * statistics.median(
+                loop.decode_step_s) if loop.decode_step_s else None),
+            "vs_plain": {"max_abs_logit_diff": diff, "near_ties": ties},
+            "tokens": [r.tokens for r in res]}
+        del pool, ppool
+    bf, fp = out["bf16_cache"], out["fp32_cache"]
+    if bf["pool_bytes_per_token"] * 2 != fp["pool_bytes_per_token"]:
+        raise AssertionError("a bf16 pool must hold half an fp32 pool's bytes")
+    # host-clock tokens/s move with the order of the runs: the two cached
+    # runs once more in PREFIX_AB_ORDER, for timing only (each rerun's
+    # count of requests with the gated run's tokens is reported)
+    ab = {"float32": [], "bfloat16": [], "same_tokens": []}
+    for dtype in PREFIX_AB_ORDER:
+        _, pool, _, res, wall = _prefix_run(torch, serving, model, cfg, reqs,
+                                            dtype, True, 0)[:5]
+        name = "bf16_cache" if dtype == "bfloat16" else "fp32_cache"
+        ab[dtype].append(sum(len(r.tokens) for r in res) / wall)
+        ab["same_tokens"].append(sum(
+            r.tokens == t for r, t in zip(res, out[name]["tokens"])))
+        del pool
+    for r in out.values():
+        del r["tokens"]
+    trace = _trace(torch, serving, model, cfg, reqs, bf["wall_s"],
+                   prefix_dtype="bfloat16", prefill_chunk=PREFIX_CHUNK)
+    emit({"phase": "prefix_serving", "config": CFG, "max_batch": MAX_BATCH,
+          "page_size": PAGE_SIZE, "requests": len(reqs),
+          "prefix_share": PREFIX_SHARE, "prefill_chunk": PREFIX_CHUNK,
+          "prompt_lens": [len(r.prompt) for r in reqs],
+          "max_new_tokens": MAX_NEW, "launches": launches, "runs": out,
+          "ab_tokens_per_s": {"order": PREFIX_AB_ORDER,
+                              "fp32_cache": ab["float32"],
+                              "bf16_cache": ab["bfloat16"],
+                              "same_tokens": ab["same_tokens"]},
+          "trace_bf16_cache": trace})
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _lc_visible(torch, pa, tables, starts, lengths, windows, sinks, dev):
     """[B, 1, 1, S] bool: the keys a decode query (at lengths - 1) sees
     through a flat table and its starts, by the kernel's rule."""
@@ -1587,6 +2051,156 @@ def phase_longctx_timing(torch, np, errs, launches):
     flat.pop("shape")
     return rows, {k: flat[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")}
+
+
+def phase_bf16_paged_timing(torch, np, reqs, spec_reqs, errs, launches):
+    """The bf16 entries of kernel row 4 at the fp32 rows' shapes, on pages
+    a bf16 pool's write_kv filled (B 8, H = H_kv 8, D 64, page 16): 4a
+    (decode_bf16) at a mid-generation step of the first admitted group of
+    the serving requests and over a 4080-token context; 4b (verify_bf16,
+    Sq 5, every block full) at that step of the speculative requests; 4d
+    (starts walk, window 512 + 16 sinks) and 4e (two-level, blocks of 16)
+    at the long-context decode shape after eviction (34 live pages).
+    Bound: the K/V rows the queries see read once at 2 bytes an element,
+    plus fp32 q and o and the int32 table operands, over 3.35 TB/s,
+    against 4 * D operations per visible (row, key) pair over the dense
+    bf16 peak.  Plain: paged_bf16_reference.  Library: SDPA in bf16 (q
+    rounded, K/V already gathered through the table, a boolean mask of the
+    visible keys; gather not timed).  Launches: the counted runs of
+    phase_prefix_serving (4a, 4b) and phase_longctx_bf16 (4d, 4e)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    dev = torch.device("cuda")
+    rng = torch.Generator(device=dev).manual_seed(SEED + 10)
+    H, D = CFG["n_head"], CFG["d_model"] // CFG["n_head"]
+    scale = D ** -0.5
+    src = "paddle_tpu_torch/kernels/csrc/paged_decode.cu"
+    tpu = "paddle_tpu/kernels/paged_attention.py:645"
+    prefix = launches["prefix"]
+    rows, extra = [], {}
+
+    def timed(name, n_launch, err, q, kp, vp, t, ln, vis, kw, tbytes, shape,
+              flat_t=None):
+        """One row; ``flat_t`` is the flat table behind a TwoLevelTables
+        ``t`` (the gather and ``vis`` follow it)."""
+        n_vis = int(vis.sum()) * H
+        B, _, sq, _ = q.shape
+        kg = pa.gather_kv_pages(kp, t if flat_t is None else flat_t)
+        vg = pa.gather_kv_pages(vp, t if flat_t is None else flat_t)
+        n_keys = int(vis.any(2).sum())  # keys some row sees, read once
+        nbytes = 2 * 2 * H * D * n_keys + 4 * 2 * B * H * sq * D + tbytes
+        qb = q.to(torch.bfloat16)
+        return _row(
+            name, src, tpu, n_launch, err,
+            device_ms(torch, lambda: pa.paged_decode_attention(
+                q, kp, vp, t, ln, **kw)),
+            device_ms(torch, lambda: pa.paged_bf16_reference(
+                q, kp, vp, t, ln, kw.get("q_lengths"),
+                kw.get("page_starts"), kw.get("windows"), kw.get("sinks"),
+                scale)),
+            nbytes, 4 * D * n_vis,
+            device_ms(torch, lambda: F.scaled_dot_product_attention(
+                qb, kg, vg, attn_mask=vis, scale=scale)),
+            dict(shape, visible_pairs_per_head=n_vis // H),
+            flops_per_s=BF16_FLOPS_PER_S)
+
+    def flat_vis(ln, kv_len, sq):
+        j = torch.arange(kv_len, device=dev)
+        pos_q = (ln.long() - sq)[:, None] + torch.arange(sq, device=dev)
+        return ((j[None, None, :] <= pos_q[:, :, None])
+                & (j[None, None, :] < ln.long()[:, None, None]))[:, None]
+
+    # 4a and 4b at the serving shapes
+    for name, rq, sq, n_launch in (
+            ("paged_decode_bf16", reqs, 1,
+             sum(v["decode_bf16"] for v in prefix.values())),
+            ("paged_verify_bf16", spec_reqs, SPEC_D + 1,
+             sum(v["verify_bf16"] for v in prefix.values()))):
+        lens = [len(r.prompt) + MAX_NEW // 2 for r in rq[:MAX_BATCH]]
+        pool, t, ln = _pool_layer(torch, serving, rng, H, H, D, lens,
+                                  "bfloat16", dev)
+        kp, vp = pool.k_pages[0], pool.v_pages[0]
+        q = torch.randn(len(lens), H, sq, D, generator=rng, device=dev)
+        kw = ({"q_lengths": torch.full((len(lens),), sq, dtype=torch.int32,
+                                       device=dev)} if sq > 1 else {})
+        rows.append(timed(
+            name, n_launch, errs[name[len("paged_"):]], q, kp, vp, t, ln,
+            flat_vis(ln, t.shape[1] * PAGE_SIZE, sq), kw,
+            4 * (t.numel() + 2 * len(lens)),
+            {"B": len(lens), "H_q": H, "H_kv": H, "D": D, "Sq": sq,
+             "page_size": PAGE_SIZE, "lengths": lens}))
+        del pool
+
+    # 4a over a 4080-token context, then 4d and 4e on the same pages
+    # evicted, as phase_longctx_timing
+    B, L = MAX_BATCH, LC_PROMPT + MAX_NEW // 2
+    pool = serving.KVCachePool(B * -(-L // PAGE_SIZE) + 4, PAGE_SIZE, 1, H, D,
+                               dtype="bfloat16")
+    ids = list(range(B))
+    for i in ids:
+        pool.allocate(i)
+
+    def fill(n):
+        pg, sl = pool.append_tokens(ids, [n] * B)
+        pool.write_kv(0, pg, sl,
+                      torch.randn(len(pg), H, D, generator=rng, device=dev),
+                      torch.randn(len(pg), H, D, generator=rng, device=dev))
+
+    fill(L)
+    kp, vp = pool.k_pages[0], pool.v_pages[0]
+    q = torch.randn(B, H, 1, D, generator=rng, device=dev)
+    t, st, ln = (torch.as_tensor(a, device=dev)
+                 for a in pool.page_tables_with_starts(ids))
+    flat = timed("paged_decode_bf16", 0, errs["decode_bf16"], q, kp, vp, t,
+                 ln, flat_vis(ln, t.shape[1] * PAGE_SIZE, 1), {},
+                 4 * (t.numel() + B),
+                 {"B": B, "H_q": H, "H_kv": H, "D": D, "page_size": PAGE_SIZE,
+                  "lengths": [L] * B, "table_pages": t.shape[1]})
+    extra["at_long_context"] = {k: flat[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}
+    for i in ids:
+        pool.truncate_seq(i, L - 1)
+        pool.evict_interior(i, LC_WINDOW, LC_SINKS)
+    fill(1)
+    t, st, ln = (torch.as_tensor(a, device=dev)
+                 for a in pool.page_tables_with_starts(ids))
+    win = torch.full((B,), LC_WINDOW, dtype=torch.int32, device=dev)
+    snk = torch.full((B,), LC_SINKS, dtype=torch.int32, device=dev)
+    vis = _lc_visible(torch, pa, t, st, ln, win, snk, dev)
+    shape = {"B": B, "H_q": H, "H_kv": H, "D": D, "page_size": PAGE_SIZE,
+             "lengths": [L] * B, "window": LC_WINDOW, "sinks": LC_SINKS,
+             "live_pages": t.shape[1]}
+    lc = launches["longctx"]
+    rows.append(timed(
+        "paged_starts_window_bf16",
+        lc["bf16_windowed_flat"]["by_table"]["starts"], errs["starts"], q,
+        kp, vp, t, ln, vis, dict(page_starts=st, windows=win, sinks=snk),
+        4 * (2 * t.numel() + 3 * B), shape))
+    tl, _ = pool.two_level_tables(ids, LC_BLOCK)
+    tl = _two_level_on(torch, pa, tl, dev)
+    rows.append(timed(
+        "paged_two_level_bf16",
+        lc["bf16_windowed_two_level"]["by_table"]["two_level"],
+        errs["two_level"], q, kp, vp, tl, ln, vis,
+        dict(windows=win, sinks=snk),
+        4 * (tl.l1.numel() + tl.l2.numel() + tl.starts.numel() + 3 * B),
+        dict(shape, block_size=LC_BLOCK), flat_t=t))
+    emit({"phase": "bf16_paged_timing", "method": "CUDA events, median of "
+          "30 after 5 warm-up calls, queued behind torch.cuda._sleep",
+          "library_call": "SDPA in bf16 over K/V already gathered through "
+          "the table, boolean mask of the visible keys (gather not timed)",
+          "rows": [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms", "shape")}
+                   for r in rows],
+          "paged_decode_bf16_at_long_context": extra["at_long_context"]})
+    for r in rows:
+        r.pop("shape")
+    extra["at_long_context"].pop("shape")
+    rows[0]["at_long_context"] = extra["at_long_context"]
+    return rows
 
 
 # -- phase 4: training -----------------------------------------------------
@@ -3556,6 +4170,7 @@ def main() -> int:
     parity_err = phase_parity(torch)
     spec_err = phase_spec_parity(torch)
     lc_err = phase_longctx_parity(torch)
+    bf16p_err = phase_bf16_paged_parity(torch)
     bwd_err = phase_bwd_parity(torch)
     bf16_err = phase_bf16_parity(torch)
     conv_err = phase_conv_parity(torch, fluid)
@@ -3563,6 +4178,8 @@ def main() -> int:
     serve_launches, reqs = phase_main_path(torch, np)
     spec_launches, spec_reqs = phase_spec_main_path(torch, np)
     lc_launches = phase_longctx(torch, np)
+    lc_bf16_launches = phase_longctx_bf16(torch, np)
+    prefix_launches = phase_prefix_serving(torch, np)
     train_launches, batch, cfg = phase_training(torch, np)
     torch.cuda.empty_cache()
     amp_launches, amp_batch, amp_cfg = phase_amp_training(torch, np)
@@ -3575,6 +4192,14 @@ def main() -> int:
                                  spec_launches)
     lc_rows, lc_flat = phase_longctx_timing(torch, np, lc_err, lc_launches)
     kernels += lc_rows
+    bf16_rows = phase_bf16_paged_timing(
+        torch, np, reqs, spec_reqs, bf16p_err,
+        {"prefix": prefix_launches, "longctx": lc_bf16_launches})
+    for r, key in zip(bf16_rows[:2], ("decode_bf16", "verify_bf16")):
+        r["launches_by_path"] = {"shared_prefix_" + run: v[key]
+                                 for run, v in prefix_launches.items()
+                                 if v[key]}
+    kernels += bf16_rows
     # the fp32 backward rows run in the fp32 phase and under amp1
     fp32_bwd_launches = {k: train_launches[k] + amp_launches["amp1"][k]
                          for k in FLASH_KERNELS}
@@ -3610,7 +4235,9 @@ def main() -> int:
     by_path = {"serving": serve_launches["paged_decode"],
                "speculative_serving": spec_launches["spec"]["decode_f32"],
                "long_context_no_window":
-                   lc_launches["no_window"]["by_variant"]["decode_f32"]}
+                   lc_launches["no_window"]["by_variant"]["decode_f32"],
+               "shared_prefix_fp32_cache":
+                   prefix_launches["fp32_cache"]["decode_f32"]}
     kernels[1]["launches"] = sum(by_path.values())
     kernels[1]["launches_by_path"] = by_path
     kernels[1]["at_long_context"] = lc_flat

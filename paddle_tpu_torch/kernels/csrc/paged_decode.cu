@@ -1,12 +1,12 @@
 // paged_decode.cu — decode and speculative-verify attention over a paged KV
-// pool, fp32 or int8 pages, for sm_90a.
+// pool, fp32, int8 or bf16 pages, for sm_90a.
 //
 // Replaces: paddle_tpu/kernels/paged_attention.py, the pallas_call built by
 // `_paged_call` (line 645) with body `_paged_kernel` (line 434): Sq = 1
 // (decode) or Sq > 1 with ragged q_lengths (the multi-token verify step of
-// speculative decoding), over fp32 pages or int8 pages with one fp32 scale
-// per page for each of K and V, [B] lengths, head-major pool [H_kv, P,
-// page_size, D].  Three table walks of one templated kernel:
+// speculative decoding), over fp32 pages, int8 pages with one fp32 scale
+// per page for each of K and V, or bf16 pages, [B] lengths, head-major pool
+// [H_kv, P, page_size, D].  Three table walks of one templated kernel:
 // - FLAT: zero-padded [B, max_pages] int32 tables, page i of a row starting
 //   at token i * page_size (rows 4a-4c of the port's kernel table);
 // - STARTS (`has_starts` / `windowed`, row 4d): the same table plus
@@ -44,6 +44,18 @@
 // in global memory and are read by the page id the walk already resolved,
 // which gives the same numbers.
 //
+// bf16 pages compute what the TPU kernel computes on them, rounding where
+// it rounds and nowhere else (the `ROUND` trait of the element type):
+// q is rounded to bf16 as it is staged; K and V widen to fp32 exactly and
+// s = (q . K) * scale is fp32; the running max, l and the correction
+// factor update once per PAGE, in the walk's slot order, as the TPU grid's
+// page axis does (a chunk then holds whole pages only: page_size <= 64);
+// p = exp(s - m) is rounded to bf16 for the PV product, which is summed
+// per page and added to acc * correction, while l sums the unrounded p;
+// the output acc / max(l, 1e-30) is rounded to bf16 and returned as fp32.
+// fp32 and int8 pages keep one update per 64-slot chunk: they have no
+// rounding point, so the grouping moves only fp32 ulps.
+//
 // Design.  q [B, H_kv * G, Sq, D] is read as [B, H_kv, R = G * Sq, D]: row
 // r = g * Sq + t, group-major as in the TPU kernel, a pure reshape.  One
 // thread block per (kv head, sequence, tile of rows): a tile holds at most
@@ -52,8 +64,8 @@
 // reads its own table row and length (a GPU has no scalar prefetch), then
 // walks the sequence in chunks of 64 token slots.  Each chunk's K and V rows
 // — gathered from as many pages as the chunk spans, with 16-byte loads (4
-// fp32 or 16 int8 elements a thread), int8 multiplied by its page's scale as
-// it is staged — sit in fp32 shared memory ONCE and serve all the tile's
+// fp32, 16 int8 or 8 bf16 elements a thread), int8 multiplied by its page's
+// scale as it is staged — sit in fp32 shared memory ONCE and serve all the tile's
 // rows: every query head of the group and every draft token.  The online
 // softmax keeps m, l per row in shared memory and the fp32 accumulator in
 // registers.
@@ -76,6 +88,7 @@
 // skipped.
 
 #include <climits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -111,25 +124,34 @@ struct Args {
   float scale;
 };
 
-template <int D>
+// corrections kept per row: one per chunk, or one per page of a chunk when
+// the element type rounds (at most CHUNK pages of one slot)
+__host__ __device__ constexpr int n_corr(bool round) {
+  return round ? CHUNK : 1;
+}
+
+template <int D, bool ROUND>
 size_t smem_bytes(int RT) {
   // floats: k [CHUNK][D+1], v [CHUNK][D], q [RT][D], p [RT][CHUNK],
-  // m/l/corr [RT]; ints: frontier, window floor [RT], page/pos/vis-start
-  // [CHUNK], the walk's last entry
+  // m/l [RT], corr [RT][n_corr]; ints: frontier, window floor [RT],
+  // page/pos/vis-start [CHUNK], the walk's last entry
   return sizeof(float) * ((size_t)CHUNK * (D + 1) + (size_t)CHUNK * D +
-                          (size_t)RT * D + (size_t)RT * CHUNK + 3 * (size_t)RT) +
+                          (size_t)RT * D + (size_t)RT * CHUNK + 2 * (size_t)RT +
+                          (size_t)RT * n_corr(ROUND)) +
          sizeof(int) * (2 * (size_t)RT + 3 * (size_t)CHUNK + 1);
 }
 
 // Loads 16 bytes of K and of V at element offset `off` (a multiple of the
 // vector width) as fp32: 4 elements of an fp32 pool, 16 of an int8 pool
-// times the page's scale.
+// times the page's scale, 8 of a bf16 pool (widened exactly).  ROUND: the
+// element type has the TPU kernel's bf16 rounding points.
 template <typename KV>
 struct Vec;
 
 template <>
 struct Vec<float> {
   static constexpr int N = 4;
+  static constexpr bool ROUND = false;
   __device__ static void load(const float* p, size_t off, float s,
                               float* out) {
     const float4 x = *reinterpret_cast<const float4*>(p + off);
@@ -140,6 +162,7 @@ struct Vec<float> {
 template <>
 struct Vec<int8_t> {
   static constexpr int N = 16;
+  static constexpr bool ROUND = false;
   __device__ static void load(const int8_t* p, size_t off, float s,
                               float* out) {
     const int4 x = *reinterpret_cast<const int4*>(p + off);
@@ -151,6 +174,28 @@ struct Vec<int8_t> {
         out[4 * i + b] = (float)(int8_t)((w[i] >> (8 * b)) & 0xff) * s;
   }
 };
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static constexpr bool ROUND = true;
+  __device__ static void load(const __nv_bfloat16* p, size_t off, float,
+                              float* out) {
+    const int4 x = *reinterpret_cast<const int4*>(p + off);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+};
+
+// x rounded to bf16 (to nearest even) and widened back
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 // The table operands of one block's walk, taken out of Args once.
 struct Table {
@@ -182,6 +227,8 @@ __global__ void __launch_bounds__(THREADS)
 paged_attn_kernel(const Args a, int R, int RT) {
   constexpr int VN = Vec<KV>::N;
   constexpr int DV = D / VN;
+  constexpr bool ROUND = Vec<KV>::ROUND;
+  constexpr int NC = n_corr(ROUND);
   const float* __restrict__ q = a.q;
   const KV* __restrict__ k_pages = static_cast<const KV*>(a.k_pages);
   const KV* __restrict__ v_pages = static_cast<const KV*>(a.v_pages);
@@ -189,6 +236,9 @@ paged_attn_kernel(const Args a, int R, int RT) {
   const float* __restrict__ v_scales = a.v_scales;
   const int page_size = a.page_size;
   const int P = a.P;
+  // token slots per chunk: whole pages only when the update is per page
+  const int CH = ROUND ? (CHUNK / page_size) * page_size : CHUNK;
+  const int n_seg = ROUND ? CH / page_size : 1;
   extern __shared__ float smem[];
   float* k_s = smem;                    // [CHUNK][D+1]
   float* v_s = k_s + CHUNK * (D + 1);   // [CHUNK][D]  (16-byte aligned)
@@ -196,8 +246,9 @@ paged_attn_kernel(const Args a, int R, int RT) {
   float* p_s = q_s + RT * D;            // [RT][CHUNK]
   float* m_s = p_s + RT * CHUNK;        // [RT]
   float* l_s = m_s + RT;                // [RT]
-  float* c_s = l_s + RT;                // [RT]
-  int* f_s = reinterpret_cast<int*>(c_s + RT);  // [RT] last visible position
+  float* c_s = l_s + RT;                // [RT][NC] correction factors
+  int* f_s = reinterpret_cast<int*>(c_s + RT * NC);  // [RT] last visible
+                                                     //      position
   int* w_s = f_s + RT;                  // [RT] window floor: visible iff
                                         //      start + page_size > w_s
   int* pg_s = w_s + RT;                 // [CHUNK] page id of each slot
@@ -236,7 +287,8 @@ paged_attn_kernel(const Args a, int R, int RT) {
   const size_t head_off = (size_t)h * P * page_size * D;
   const size_t qo_off = (((size_t)b * a.H_kv + h) * R + r0) * D;
 
-  for (int idx = tid; idx < TD; idx += THREADS) q_s[idx] = q[qo_off + idx];
+  for (int idx = tid; idx < TD; idx += THREADS)
+    q_s[idx] = ROUND ? round_bf16(q[qo_off + idx]) : q[qo_off + idx];
   for (int r = tid; r < rows; r += THREADS) {
     const int qpos = q_start + (r0 + r) % Sq;
     m_s[r] = NEG_INF / 2;
@@ -265,14 +317,14 @@ paged_attn_kernel(const Args a, int R, int RT) {
     n_slots = *last_s * page_size;
   }
 
-  for (int t0 = 0; t0 < n_slots; t0 += CHUNK) {
+  for (int t0 = 0; t0 < n_slots; t0 += CH) {
     __syncthreads();  // q/m/l initialised, previous chunk consumed
     if (WALK != FLAT) {
       // resolve each slot of the chunk once: page id, position, window key
       if (tid < CHUNK) {
         const int s = t0 + tid;
         int page = 0, pos = INT_MAX, vst = INT_MAX;
-        if (s < n_slots) {
+        if (tid < CH && s < n_slots) {
           int start;
           entry<WALK>(walk_tab, s / page_size, page, start);
           if (start < len && start + s % page_size < len) {
@@ -295,7 +347,7 @@ paged_attn_kernel(const Args a, int R, int RT) {
       bool live;
       int page;
       if (WALK == FLAT) {
-        live = t < len;
+        live = j < CH && t < len;
         page = live ? min(max(table[t / page_size], 0), P - 1) : 0;
       } else {
         live = pos_s[j] != INT_MAX;
@@ -328,13 +380,45 @@ paged_attn_kernel(const Args a, int R, int RT) {
 #pragma unroll 16
       for (int d = 0; d < D; ++d) s = fmaf(qr[d], kj[d], s);
       const bool vis = WALK == FLAT
-                           ? t0 + j <= f_s[r]
+                           ? j < CH && t0 + j <= f_s[r]
                            : pos_s[j] <= f_s[r] && vst_s[j] > w_s[r];
       p_s[pr] = vis ? s * a.scale : NEG_INF;
     }
     __syncthreads();
 
-    for (int r = warp; r < rows; r += THREADS / 32) {
+    for (int r = warp; r < rows && ROUND; r += THREADS / 32) {
+      // one update per page of the chunk, in slot order; a slot past CH
+      // (page n_seg) takes part in none
+      float* pr = p_s + r * CHUNK;
+      const float a0 = pr[lane], a1 = pr[lane + 32];
+      const int g0 = lane / page_size, g1 = (lane + 32) / page_size;
+      float m = m_s[r], l = l_s[r], e0 = 0.f, e1 = 0.f;
+      for (int k = 0; k < n_seg; ++k) {
+        float mx = fmaxf(g0 == k ? a0 : NEG_INF, g1 == k ? a1 : NEG_INF);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m, mx);
+        if (g0 == k) e0 = expf(a0 - m_new);
+        if (g1 == k) e1 = expf(a1 - m_new);
+        float sum = (g0 == k ? e0 : 0.f) + (g1 == k ? e1 : 0.f);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        const float corr = expf(m - m_new);
+        l = corr * l + sum;  // the unrounded p
+        m = m_new;
+        if (lane == 0) c_s[r * NC + k] = corr;
+      }
+      __syncwarp();
+      pr[lane] = round_bf16(e0);  // the PV product's p
+      pr[lane + 32] = round_bf16(e1);
+      if (lane == 0) {
+        m_s[r] = m;
+        l_s[r] = l;
+      }
+    }
+    for (int r = warp; r < rows && !ROUND; r += THREADS / 32) {
       float* pr = p_s + r * CHUNK;
       const float a0 = pr[lane], a1 = pr[lane + 32];
       float mx = fmaxf(a0, a1);
@@ -353,7 +437,7 @@ paged_attn_kernel(const Args a, int R, int RT) {
       __syncwarp();
       if (lane == 0) {
         const float corr = expf(m_prev - m_new);
-        c_s[r] = corr;
+        c_s[r * NC] = corr;
         l_s[r] = l_s[r] * corr + sum;
         m_s[r] = m_new;
       }
@@ -366,10 +450,21 @@ paged_attn_kernel(const Args a, int R, int RT) {
       if (idx < TD) {
         const int r = idx / D, d = idx % D;
         const float* pr = p_s + r * CHUNK;
-        float acc_i = acc[i] * c_s[r];
+        float acc_i = acc[i];
+        if (ROUND) {
+          // per page: acc * correction + the page's own p . V
+          for (int k = 0, j = 0; k < n_seg; ++k) {
+            float dot = 0.f;
+            for (const int j_end = j + page_size; j < j_end; ++j)
+              dot = fmaf(pr[j], v_s[j * D + d], dot);
+            acc_i = acc_i * c_s[r * NC + k] + dot;
+          }
+        } else {
+          acc_i *= c_s[r * NC];
 #pragma unroll 8
-        for (int j = 0; j < CHUNK; ++j)
-          acc_i = fmaf(pr[j], v_s[j * D + d], acc_i);
+          for (int j = 0; j < CHUNK; ++j)
+            acc_i = fmaf(pr[j], v_s[j * D + d], acc_i);
+        }
         acc[i] = acc_i;
       }
     }
@@ -379,7 +474,10 @@ paged_attn_kernel(const Args a, int R, int RT) {
 #pragma unroll
   for (int i = 0; i < MAX_OUT; ++i) {
     const int idx = tid + THREADS * i;
-    if (idx < TD) a.o[qo_off + idx] = acc[i] / fmaxf(l_s[idx / D], 1e-30f);
+    if (idx < TD) {
+      const float o = acc[i] / fmaxf(l_s[idx / D], 1e-30f);
+      a.o[qo_off + idx] = ROUND ? round_bf16(o) : o;
+    }
   }
 }
 
@@ -389,7 +487,7 @@ int launch(const Args& a, cudaStream_t stream) {
   const int RT = min(R, TILE_OUT / D);
   const int tiles = (R + RT - 1) / RT;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<D>(RT);
+  const size_t smem = smem_bytes<D, Vec<KV>::ROUND>(RT);
   cudaError_t err = cudaFuncSetAttribute(
       paged_attn_kernel<D, KV, WALK>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -402,6 +500,9 @@ int launch(const Args& a, cudaStream_t stream) {
 template <typename KV, int WALK>
 int dispatch(const Args& a, int D, void* stream) {
   if (a.B * a.H_kv * a.G * a.Sq == 0) return 0;
+  // a per-page update needs whole pages in a chunk
+  if (Vec<KV>::ROUND && (a.page_size < 1 || a.page_size > CHUNK))
+    return (int)cudaErrorInvalidValue;
   if (WALK == TWO_LEVEL &&
       (a.block_size < 1 || a.max_pages % a.block_size || a.n_blocks < 1))
     return (int)cudaErrorInvalidValue;
@@ -546,4 +647,52 @@ extern "C" int paged_walk_i8(const float* q, const int8_t* k_pages,
                       starts, lengths, q_lengths, windows, sinks, o, B, H_kv,
                       G, Sq, P, page_size, max_pages, block_size, n_blocks, D,
                       scale, stream);
+}
+
+// The bf16 entries: pages [H_kv, P, page_size, D] bf16 (page_size <= 64),
+// q and o fp32, at the TPU kernel's bf16 rounding points (file comment).
+// k_scales, v_scales ignored.  Sq = 1 (q_lengths ignored), Sq > 1, and the
+// explicit-starts walks, as the fp32 entries above.
+extern "C" int paged_decode_bf16(const float* q, const __nv_bfloat16* k_pages,
+                                 const __nv_bfloat16* v_pages,
+                                 const float* k_scales, const float* v_scales,
+                                 const int* tables, const int* lengths,
+                                 const int* q_lengths, float* o, int B,
+                                 int H_kv, int G, int Sq, int P,
+                                 int page_size, int max_pages, int D,
+                                 float scale, void* stream) {
+  return dispatch<__nv_bfloat16, FLAT>(
+      flat_args(q, k_pages, v_pages, nullptr, nullptr, tables, lengths,
+                nullptr, o, B, H_kv, G, 1, P, page_size, max_pages, scale),
+      D, stream);
+}
+
+extern "C" int paged_verify_bf16(const float* q, const __nv_bfloat16* k_pages,
+                                 const __nv_bfloat16* v_pages,
+                                 const float* k_scales, const float* v_scales,
+                                 const int* tables, const int* lengths,
+                                 const int* q_lengths, float* o, int B,
+                                 int H_kv, int G, int Sq, int P,
+                                 int page_size, int max_pages, int D,
+                                 float scale, void* stream) {
+  return dispatch<__nv_bfloat16, FLAT>(
+      flat_args(q, k_pages, v_pages, nullptr, nullptr, tables, lengths,
+                q_lengths, o, B, H_kv, G, Sq, P, page_size, max_pages, scale),
+      D, stream);
+}
+
+extern "C" int paged_walk_bf16(const float* q, const __nv_bfloat16* k_pages,
+                               const __nv_bfloat16* v_pages,
+                               const float* k_scales, const float* v_scales,
+                               const int* tables, const int* l2,
+                               const int* starts, const int* lengths,
+                               const int* q_lengths, const int* windows,
+                               const int* sinks, float* o, int B, int H_kv,
+                               int G, int Sq, int P, int page_size,
+                               int max_pages, int block_size, int n_blocks,
+                               int D, float scale, void* stream) {
+  return walk<__nv_bfloat16>(q, k_pages, v_pages, nullptr, nullptr, tables,
+                             l2, starts, lengths, q_lengths, windows, sinks,
+                             o, B, H_kv, G, Sq, P, page_size, max_pages,
+                             block_size, n_blocks, D, scale, stream);
 }

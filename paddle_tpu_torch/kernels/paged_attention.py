@@ -21,10 +21,17 @@ else raises :class:`GroupedHeadsError`.
 - An int8 pool passes its layer's per-page fp32 ``k_scales`` /
   ``v_scales`` [P] (together); K and V dequantize as int8 * scale of
   their own page.  An int8 pool without scales raises.
+- A bf16 pool (q stays fp32, the output is fp32) computes what the TPU
+  kernel computes on bf16 pages, rounding where it rounds: q to bf16
+  before QK, the running max once per page in the walk's order, p to
+  bf16 for the PV product only (l sums the unrounded p), the output to
+  bf16.  Its page size must be at most 64.  Any other pool dtype raises
+  TypeError.
 
-Four kernel variants, one CUDA kernel (``csrc/paged_decode.cu``):
-``decode_f32``, ``verify_f32``, ``decode_i8`` and ``verify_i8``, each
-over one of three table walks (below).
+Six kernel variants, one CUDA kernel (``csrc/paged_decode.cu``):
+``decode_f32``, ``verify_f32``, ``decode_i8``, ``verify_i8``,
+``decode_bf16`` and ``verify_bf16``, each over one of three table walks
+(below).
 
 - On a CUDA tensor it launches the variant or raises.  There is no
   envelope and no fallback: a geometry the kernel does not take is an
@@ -34,7 +41,9 @@ over one of three table walks (below).
   reference attention with ``k_lengths``) and
   :func:`paged_verify_reference` for Sq > 1 (a dense masked softmax over
   the gathered view, the JAX ``_reference_verify``); an int8 pool
-  dequantizes in the gather.
+  dequantizes in the gather; a bf16 pool always takes
+  :func:`paged_bf16_reference`, the page-by-page online softmax with the
+  five rounding points.
 
 Long-context surfaces (the JAX package's window + sink decode):
 
@@ -74,12 +83,22 @@ import torch
 from . import _build
 from .flash_attention import NEG_INF, reference_attention
 
-__all__ = ["GroupedHeadsError", "PAD_START", "TABLE_WALKS", "TwoLevelTables",
-           "VARIANTS", "gather_kv_pages", "paged_decode_attention",
+__all__ = ["BF16_FAULTS", "GroupedHeadsError", "PAD_START", "TABLE_WALKS",
+           "TwoLevelTables", "VARIANTS", "gather_kv_pages",
+           "paged_bf16_reference", "paged_decode_attention",
            "paged_decode_reference", "paged_verify_reference",
            "paged_windowed_reference", "repeat_kv", "reset_launches"]
 
-VARIANTS = ("decode_f32", "verify_f32", "decode_i8", "verify_i8")
+VARIANTS = ("decode_f32", "verify_f32", "decode_i8", "verify_i8",
+            "decode_bf16", "verify_bf16")
+# the pool dtypes the kernel takes, and the suffix of their entries
+_POOL_DTYPES = {torch.float32: "_f32", torch.int8: "_i8",
+                torch.bfloat16: "_bf16"}
+# the most slots a bf16 page may hold: the kernel's chunk of 64 slots holds
+# whole pages, so that the running max updates once per page
+_BF16_MAX_PAGE = 64
+# planted faults of paged_bf16_reference, each one moved rounding point
+BF16_FAULTS = ("chunk_max", "l_rounded", "q_unrounded")
 TABLE_WALKS = ("flat", "starts", "two_level")
 # the start of a padding slot in an explicit-starts operand (a flat
 # page_starts row past the sequence's pages, or a two-level pad block):
@@ -288,6 +307,89 @@ def paged_windowed_reference(q, k_pages, v_pages, page_tables, lengths,
     return torch.matmul(weights, v)
 
 
+def paged_bf16_reference(q, k_pages, v_pages, page_tables, lengths,
+                         q_lengths=None, page_starts=None, windows=None,
+                         sinks=None, scale=None, *, fault=None
+                         ) -> torch.Tensor:
+    """Plain version of the bf16-page variants (every walk): what the
+    TPU kernel computes on bf16 pages, at its rounding points.  Keys,
+    visibility and dead slots as :func:`paged_windowed_reference` (flat,
+    explicit starts, windows and sinks, or a :class:`TwoLevelTables`);
+    then, per row r = g * Sq + t of KV head h (query head h * G + g):
+
+    - q is rounded to bf16; K and V widen exactly; s = (q . K) * scale
+      in fp32;
+    - the walk goes page by page in table order, with the online
+      softmax m, l, acc updated once per page: m' = max(m, max s), p =
+      exp(s - m'), l' = exp(m - m') * l + sum p (p unrounded), acc' =
+      acc * exp(m - m') + bf16(p) . V;
+    - the output acc / max(l, 1e-30) is rounded to bf16.
+
+    A row that sees no key returns zeros.  q [B, H_q, Sq, D] fp32 ->
+    [B, H_q, Sq, D] fp32.  ``fault`` plants one moved rounding point
+    (for the parity gate's own checks): ``"chunk_max"`` updates once per
+    64 slots, ``"l_rounded"`` sums the rounded p into l,
+    ``"q_unrounded"`` keeps q in fp32."""
+    if fault is not None and fault not in BF16_FAULTS:
+        raise ValueError(f"fault must be one of {BF16_FAULTS}, got {fault!r}")
+    B, Hq, Sq, D = q.shape
+    Hkv, _, ps, _ = k_pages.shape
+    G = _group_size(Hq, Hkv)
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    if isinstance(page_tables, TwoLevelTables):
+        if page_starts is not None:
+            raise ValueError("a TwoLevelTables walk carries its own starts")
+        page_tables, page_starts = page_tables.flatten()
+    tables = torch.as_tensor(page_tables, device=dev).to(torch.long)
+    n_pages = tables.shape[1]
+    st = (torch.arange(n_pages, device=dev)[None, :].expand(B, n_pages)
+          * ps if page_starts is None
+          else torch.as_tensor(page_starts, device=dev).to(torch.long))
+    ln = torch.as_tensor(lengths, device=dev).to(torch.long).reshape(-1)
+    ql = (torch.full((B,), Sq, device=dev) if q_lengths is None
+          else torch.as_tensor(q_lengths, device=dev).to(torch.long)
+          .reshape(-1))
+    pstart = st.repeat_interleave(ps, dim=1)  # [B, S]
+    kpos = pstart + torch.arange(ps, device=dev).repeat(n_pages)[None, :]
+    dead = ((kpos >= ln[:, None]) | (pstart == PAD_START))[:, None, :, None]
+    k = gather_kv_pages(k_pages, tables).float().masked_fill(dead, 0.0)
+    v = gather_kv_pages(v_pages, tables).float().masked_fill(dead, 0.0)
+    R = G * Sq
+    qr = (q.float() if fault == "q_unrounded"
+          else q.to(torch.bfloat16).float()).reshape(B, Hkv, R, D)
+    # row r = g * Sq + t sits at position lengths - q_lengths + t
+    qpos = (ln - ql)[:, None] + (torch.arange(R, device=dev) % Sq)[None, :]
+    kp, sp, qp = kpos[:, None, :], pstart[:, None, :], qpos[:, :, None]
+    vis = (kp <= qp) & (kp < ln[:, None, None])  # [B, R, S]
+    if windows is not None:
+        win = torch.as_tensor(windows, device=dev).to(torch.long).reshape(-1)
+        snk = (torch.zeros_like(win) if sinks is None
+               else torch.as_tensor(sinks, device=dev).to(torch.long)
+               .reshape(-1))
+        vis = vis & ((sp < snk[:, None, None])
+                     | (sp + ps > qp + 1 - win[:, None, None]))
+    s_all = torch.matmul(qr, k.transpose(-1, -2)) * scale
+    s_all = s_all.masked_fill(~vis[:, None], NEG_INF)  # [B, H_kv, R, S]
+    m = torch.full((B, Hkv, R, 1), NEG_INF / 2, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(B, Hkv, R, D, device=dev)
+    blk = 64 if fault == "chunk_max" else ps
+    for j0 in range(0, s_all.shape[-1], blk):
+        s = s_all[..., j0:j0 + blk]
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        p16 = p.to(torch.bfloat16).float()
+        l = corr * l + (p16 if fault == "l_rounded" else p).sum(
+            -1, keepdim=True)
+        acc = acc * corr + torch.matmul(p16, v[:, :, j0:j0 + blk])
+        m = m_new
+    out = (acc / l.clamp_min(1e-30)).to(torch.bfloat16).float()
+    return out.reshape(B, Hq, Sq, D)
+
+
 @functools.lru_cache(maxsize=None)
 def _entry(name: str):
     fn = getattr(_build.library("paged_decode"), "paged_" + name)
@@ -314,9 +416,6 @@ def _entry(name: str):
 def _check(q, k_pages, v_pages, tables, lengths, q_lengths, k_scales,
            v_scales) -> None:
     kv_dtype = k_pages.dtype
-    if kv_dtype not in (torch.float32, torch.int8):
-        raise TypeError(f"paged_decode takes a float32 or int8 pool, got "
-                        f"{kv_dtype}")
     named = [("q", q, torch.float32), ("k_pages", k_pages, kv_dtype),
              ("v_pages", v_pages, kv_dtype)]
     if k_scales is not None:
@@ -342,6 +441,10 @@ def _check(q, k_pages, v_pages, tables, lengths, q_lengths, k_scales,
         raise ValueError(f"pool head_dim {k_pages.shape[3]} != query {D}")
     if D not in _HEAD_DIMS:
         raise ValueError(f"paged_decode supports head_dim {_HEAD_DIMS}, got {D}")
+    if kv_dtype == torch.bfloat16 and k_pages.shape[2] > _BF16_MAX_PAGE:
+        raise ValueError(
+            f"a bf16 pool's pages hold at most {_BF16_MAX_PAGE} slots (the "
+            f"kernel's chunk holds whole pages), got {k_pages.shape[2]}")
     if B > _MAX_GRID_Y:
         raise ValueError(f"batch {B} exceeds the grid limit {_MAX_GRID_Y}")
     if tables.dim() != 2 or tables.shape[0] != B or lengths.shape != (B,):
@@ -409,7 +512,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, lengths,
                            v_scales=None, page_starts=None, windows=None,
                            sinks=None) -> torch.Tensor:
     """q [B, H_q, Sq, D] fp32; k_pages/v_pages [H_kv, P, page_size, D]
-    fp32 or int8; page_tables [B, max_pages] int32 or a
+    fp32, int8 or bf16; page_tables [B, max_pages] int32 or a
     :class:`TwoLevelTables`; lengths [B] (the fed tokens already
     appended); q_lengths [B] (Sq > 1 only); k_scales / v_scales [P] fp32
     (int8 pools only); page_starts [B, max_pages] (flat tables only),
@@ -426,6 +529,9 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, lengths,
             "q_lengths is the multi-token verify contract — a single-"
             "token decode step has nothing ragged to mask")
     G = _group_size(q.shape[1], k_pages.shape[0])
+    if k_pages.dtype not in _POOL_DTYPES:
+        raise TypeError(f"paged_decode takes a float32, int8 or bfloat16 "
+                        f"pool, got {k_pages.dtype}")
     if (k_scales is None) != (v_scales is None):
         raise ValueError("k_scales and v_scales must be passed together")
     quantized = k_pages.dtype == torch.int8
@@ -450,6 +556,10 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, lengths,
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
+        if k_pages.dtype == torch.bfloat16:
+            return paged_bf16_reference(
+                q, k_pages, v_pages, page_tables, lengths, q_lengths,
+                page_starts, windows, sinks, scale)
         if walk != "flat":
             return paged_windowed_reference(
                 q, k_pages, v_pages, page_tables, lengths, q_lengths,
@@ -468,8 +578,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, lengths,
     lens = _int32(lengths, q.device).reshape(-1)
     qlens = None if q_lengths is None else _int32(q_lengths,
                                                   q.device).reshape(-1)
-    variant = ("verify" if Sq > 1 else "decode") \
-        + ("_i8" if quantized else "_f32")
+    sfx = _POOL_DTYPES[k_pages.dtype]
+    variant = ("verify" if Sq > 1 else "decode") + sfx
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -495,7 +605,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, lengths,
         _check(q, k_pages, v_pages, tables, lens, qlens, k_scales, v_scales)
         max_pages = tables.shape[1] * (bs or 1)
         n_blocks = l2.shape[0] if l2 is not None else 0
-        entry = "walk_i8" if quantized else "walk_f32"
+        entry = "walk" + sfx
         args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 ptr(k_scales), ptr(v_scales), tables.data_ptr(), ptr(l2),
                 starts.data_ptr(), lens.data_ptr(), ptr(qlens), ptr(win),

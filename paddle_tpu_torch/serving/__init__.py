@@ -1,6 +1,7 @@
 """Serving tier of the port (counterpart of paddle_tpu/serving): the paged
-KV pool (fp32 or int8) and greedy continuous-batching decode with greedy
-speculative decoding."""
+KV pool (fp32, bf16 or int8, refcounted pages), the prefix cache, and
+greedy continuous-batching decode with greedy speculative decoding and
+chunked prefill."""
 
 from ..kernels.paged_attention import GroupedHeadsError
 from .generate import (
@@ -16,6 +17,7 @@ from .generate import (
     params_from_jax,
 )
 from .kvcache import KVCachePool, PagePoolExhausted, SequenceHandle
+from .prefixcache import PrefixCache, PrefixMatch
 from .speculative import PromptLookupDrafter
 
 __all__ = [
@@ -27,6 +29,8 @@ __all__ = [
     "KVCachePool",
     "NonFiniteSequenceError",
     "PagePoolExhausted",
+    "PrefixCache",
+    "PrefixMatch",
     "PromptLookupDrafter",
     "SequenceHandle",
     "TransformerDecoder",

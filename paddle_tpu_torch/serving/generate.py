@@ -17,6 +17,11 @@ serving steps:
 - ``verify_step``: a block of 1 + d tokens per sequence (the last
   committed token and d drafted ones) in one step; attention is the
   paged kernel's verify variant, each row causal inside the block.
+- ``chunk_prefill_step``: a run of prompt tokens per sequence from any
+  position (after a cached prefix, or a later chunk of a long prompt);
+  its queries attend over the sequence's pages gathered at the pool's
+  dtype and computed in fp32, masked by absolute position — plain
+  PyTorch, as the JAX package computes it outside any kernel.
 
 Both steps take ``windows`` / ``sinks`` (the sliding-window + attention-
 sink decode mask, per row) and ``table_block`` (two-level page tables);
@@ -38,15 +43,19 @@ kernel.  A request with ``window=`` decodes under the sliding window
 (plus ``sinks`` tokens' pages); before each decode step the loop evicts
 the pages that window can never attend again, so a long context's walk
 stays at sinks + window pages.  ``table_block=`` sends every decode and
-verify step's tables through the two-level view.
+verify step's tables through the two-level view.  ``prefix_cache=`` (a
+``PrefixCache`` over the loop's pool) attaches each admitted prompt's
+longest cached prefix and prefills only the rest through chunk steps;
+``prefill_chunk=`` caps the prefill tokens of one step, and chunk steps
+then alternate with decode steps.
 
 ``full_forward`` / ``full_decode`` are the oracles: per-sequence greedy
 decode recomputing the whole prefix with plain attention and no cache,
 under ``window_mask`` for windowed decode.
 
-Left for later slices: sampling and sampled speculation, the prefix
-cache with chunked prefill (and with it the corpus drafter), adapters,
-bf16 pools, SPMD programs, the tiered KV store and the Engine front end.
+Left for later slices: sampling and sampled speculation, the corpus
+drafter, the ``prefill="token"`` arm, adapters, SPMD programs, the tiered
+KV store and the Engine front end.
 """
 
 from __future__ import annotations
@@ -69,10 +78,12 @@ from ..kernels.paged_attention import (
     PAD_START,
     TwoLevelTables,
     _group_size,
+    gather_kv_pages,
     paged_decode_attention,
     repeat_kv,
 )
 from ..models.transformer import _sinusoid_table
+from . import prefill_sched
 from .kvcache import KVCachePool, PagePoolExhausted
 from .speculative import PromptLookupDrafter
 
@@ -567,6 +578,82 @@ class TransformerDecoder(nn.Module):
         h_last = h[torch.arange(B, device=self.device), self._index(lens - 1)]
         return h_last @ self.embed.T
 
+    @torch.inference_mode()
+    def chunk_prefill_step(self, pool: KVCachePool, seq_ids: Sequence[int],
+                           chunks: Sequence[Sequence[int]],
+                           start_positions: Sequence[int]) -> torch.Tensor:
+        """Prefill ``chunks[i]``, consecutive prompt tokens of sequence i,
+        from absolute position ``start_positions[i]`` (need not be 0).
+        The chunk's K/V lands in the pool through one atomic
+        ``append_tokens`` claim (a shared tail page copies there), and its
+        queries attend over every page the sequence's table holds — a
+        cached prefix, earlier chunks, the chunk itself — gathered at the
+        pool's dtype (int8 dequantized) and computed in fp32, as the JAX
+        package's einsum of fp32 q with bf16 K promotes: nothing rounds q
+        or the weights here.  Key j is visible to the query at position p
+        iff j <= p; the rows past each sequence's length are zeroed before
+        the products.  A window-evicted table is refused before any slot
+        is claimed (the gather places key j at position j).  Returns the
+        logits [B, V] at each sequence's last chunk token, meaningful for
+        chunks that complete their prompt."""
+        cfg = self.cfg
+        lens = np.asarray([len(c) for c in chunks], np.int32)
+        if not len(lens) or lens.min() < 1:
+            raise ValueError("chunk prefill needs non-empty chunks")
+        starts = np.asarray(start_positions, np.int64)
+        B, Cmax = len(chunks), int(lens.max())
+        if int((starts + lens).max()) > cfg.max_length:
+            # before append_tokens: a failed chunk must not leave claimed
+            # slots with no K/V behind
+            raise ValueError(
+                f"chunk reaches position {int((starts + lens).max())} > "
+                f"max_length {cfg.max_length}")
+        for s in seq_ids:
+            if pool._tables[s].starts is not None:
+                raise ValueError(
+                    f"sequence {s} is window-evicted — chunk prefill over a "
+                    "compacted page table is unsupported (windows shape "
+                    "decode only; prefill before evicting)")
+        d, H, Dh = cfg.d_model, cfg.n_head, cfg.head_dim
+        Hkv, G = cfg.num_kv_heads, cfg.group_size
+        tokens = np.zeros((B, Cmax), np.int64)
+        for i, c in enumerate(chunks):
+            tokens[i, :lens[i]] = c
+        pages, slots = pool.append_tokens(seq_ids, lens)
+        tables, total = pool.page_table_batch(seq_ids)
+        tables = torch.as_tensor(tables, device=self.device)
+        b_idx = self._index(np.repeat(np.arange(B), lens))
+        t_idx = self._index(np.concatenate([np.arange(n) for n in lens]))
+        S = tables.shape[1] * pool.page_size
+        pos = starts[:, None] + np.arange(Cmax)[None, :]  # absolute
+        mask = torch.as_tensor(np.arange(S)[None, None, :] <= pos[:, :, None],
+                               device=self.device)  # [B, Cmax, S]
+        dead = torch.as_tensor(np.arange(S)[None, :] >= total[:, None],
+                               device=self.device)[:, None, :, None]
+        # padded rows: positions clamped, their values unread
+        h = self.embed[self._index(tokens)] * float(np.sqrt(d)) \
+            + self.pos[self._index(np.minimum(pos, cfg.max_length - 1))]
+        for li, layer in enumerate(self.layers):
+            lp = layer.params()
+            q = (h @ lp["wq"]).reshape(B, Cmax, H, Dh)
+            k = (h @ lp["wk"]).reshape(B, Cmax, Hkv, Dh)
+            v = (h @ lp["wv"]).reshape(B, Cmax, Hkv, Dh)
+            pool.write_kv(li, pages, slots, k[b_idx, t_idx], v[b_idx, t_idx])
+            k_scales, v_scales = pool.layer_scales(li)
+            k_full = gather_kv_pages(pool.k_pages[li], tables, k_scales)
+            v_full = gather_kv_pages(pool.v_pages[li], tables, v_scales)
+            k_full, v_full = repeat_kv(
+                k_full.float().masked_fill(dead, 0.0),
+                v_full.float().masked_fill(dead, 0.0), G)
+            scores = torch.einsum("bihd,bhjd->bhij", q, k_full) * Dh ** -0.5
+            w = torch.softmax(scores.masked_fill(~mask[:, None], NEG_INF), -1)
+            attn = torch.einsum("bhij,bhjd->bihd", w, v_full).reshape(
+                B, Cmax, d)
+            h = _layernorm(h + attn @ lp["wo"], lp["ln1_g"], lp["ln1_b"])
+            h = _ffn_block(h, lp)
+        h_last = h[torch.arange(B, device=self.device), self._index(lens - 1)]
+        return h_last @ self.embed.T
+
 
 @dataclasses.dataclass
 class DecodeRequest:
@@ -601,15 +688,24 @@ class GeneratedSequence:
 
 
 class _Active:
-    __slots__ = ("req", "seq_id", "pos", "result", "charged")
+    __slots__ = ("req", "seq_id", "pos", "result", "charged", "matched",
+                 "whole", "inserted")
 
     def __init__(self, req: DecodeRequest, seq_id: int,
-                 result: GeneratedSequence, charged: int):
+                 result: GeneratedSequence, charged: int, matched: int,
+                 whole: bool):
         self.req = req
         self.seq_id = seq_id
-        self.pos = 0  # next position to feed
+        self.pos = matched  # next position to feed
         self.result = result
         self.charged = charged  # pages this admission reserved
+        self.matched = matched  # prompt tokens the prefix cache served
+        self.whole = whole  # whole-prompt prefill (else chunk steps)
+        self.inserted = False  # prompt pages offered to the cache
+
+    def prefilling(self) -> bool:
+        """A chunk-mode sequence whose prompt is not all in the pool."""
+        return not self.whole and self.pos < len(self.result.prompt)
 
 
 class ContinuousBatchingLoop:
@@ -626,6 +722,20 @@ class ContinuousBatchingLoop:
     mid-decode; waiting requests admit in FIFO order as retirements free
     pages.  Each co-admitted group runs ONE ``prefill_step``; the loop
     then re-admits before decoding.
+
+    ``prefix_cache`` (a :class:`PrefixCache` over this loop's pool)
+    matches each admitted prompt's longest cached prefix and attaches its
+    pages read-only: the footprint charges only the pages past the
+    matched whole pages, and the admission bound also sets aside the
+    live attached pages no charge covers (``uncharged_live_pages``).  A
+    sequence with a match, or every sequence when ``prefill_chunk`` (0:
+    uncapped) is set, prefills through ``chunk_prefill_step``: each chunk
+    step packs at most ``prefill_chunk`` prompt tokens FIFO over the
+    prefilling sequences (``prefill_flops``: an attention-work budget on
+    top, ``prefill_sched.plan_chunks``), and when sequences also decode,
+    chunk and decode steps alternate.  A completed prompt's pages go into
+    the cache; a retired sequence's pages drop one hold each; a
+    quarantined sequence that read cached pages invalidates its chain.
 
     ``speculate=d`` (0: off) arms greedy speculative decoding: each
     decoding sequence drafts up to min(d, its remaining max_new) tokens
@@ -646,23 +756,41 @@ class ContinuousBatchingLoop:
     decode and verify step's tables through the two-level view with L2
     blocks of b pages.
 
-    Counters: ``steps``, ``prefill_steps``, ``decode_steps`` (verify
-    steps included), ``spec_steps`` (verify steps), ``drafted_tokens``,
-    ``accepted_tokens``, ``rolled_back_tokens``, ``quarantined``,
-    ``pages_evicted``, ``max_decode_table_pages`` (the widest table any
-    decode or verify step walked, after its eviction and appends);
-    host-clock durations of each step (ending after the logits reach the
-    host) in ``prefill_step_s``, ``decode_step_s`` and
+    Counters: ``steps``, ``prefill_steps`` (chunk steps included),
+    ``decode_steps`` (verify steps included), ``spec_steps`` (verify
+    steps), ``drafted_tokens``, ``accepted_tokens``,
+    ``rolled_back_tokens``, ``quarantined``, ``pages_evicted``,
+    ``max_decode_table_pages`` (the widest table any decode or verify
+    step walked, after its eviction and appends), ``prefix_hits``,
+    ``prefix_misses``, ``cached_prefill_tokens``, ``prefill_tokens`` (the
+    prompt tokens the model ran), ``max_prefill_tokens_step``; host-clock
+    durations of each step (ending after the logits reach the host) in
+    ``prefill_step_s`` (chunk steps included), ``decode_step_s`` and
     ``verify_step_s``."""
 
     def __init__(self, params: Union[Dict, TransformerDecoder],
                  cfg: DecodeConfig, pool: KVCachePool, max_batch: int = 4,
                  device=None, speculate: int = 0, drafter=None,
-                 table_block: Optional[int] = None):
+                 table_block: Optional[int] = None, prefix_cache=None,
+                 prefill_chunk: int = 0,
+                 prefill_flops: Optional[float] = None):
         if int(speculate) < 0:
             raise ValueError("speculate must be >= 0")
         if table_block is not None and int(table_block) < 1:
             raise ValueError("table_block must be >= 1 (or None)")
+        if prefix_cache is not None and prefix_cache.pool is not pool:
+            raise ValueError(
+                "prefix_cache is wired to a different pool — shared pages "
+                "and refcounts must live in the pool this loop appends to")
+        if int(prefill_chunk) < 0:
+            raise ValueError("prefill_chunk must be >= 0")
+        if prefill_flops is not None and prefill_flops <= 0:
+            raise ValueError("prefill_flops must be > 0 (or None)")
+        if prefill_flops is not None and not prefill_chunk:
+            raise ValueError(
+                "prefill_flops needs chunked prefill — also pass a nonzero "
+                "prefill_chunk (it still clamps tokens; the flop budget "
+                "binds where it is tighter)")
         self.device = resolve_device(device)
         if pool.device != self.device:
             raise ValueError(f"pool lives on {pool.device}, the loop runs "
@@ -682,6 +810,10 @@ class ContinuousBatchingLoop:
         self.cfg = cfg
         self.pool = pool
         self.max_batch = int(max_batch)
+        self.prefix_cache = prefix_cache
+        self._prefill_chunk = int(prefill_chunk)
+        self._prefill_flops = (float(prefill_flops)
+                               if prefill_flops is not None else None)
         self._speculate = int(speculate)
         self._table_block = int(table_block) if table_block else None
         self.drafter = drafter if drafter is not None else (
@@ -698,6 +830,12 @@ class ContinuousBatchingLoop:
         self.rolled_back_tokens = 0
         self.pages_evicted = 0
         self.max_decode_table_pages = 0
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.cached_prefill_tokens = 0
+        self.prefill_tokens = 0
+        self.max_prefill_tokens_step = 0
+        self._prefer_prefill = True
         self.prefill_step_s: List[float] = []
         self.decode_step_s: List[float] = []
         self.verify_step_s: List[float] = []
@@ -735,13 +873,30 @@ class ContinuousBatchingLoop:
         if getattr(self.drafter, "stateful", False):
             self.drafter.release(a.seq_id)
 
-    def _footprint(self, req: DecodeRequest) -> int:
-        """Worst-case pages a request pulls from the free list."""
+    def _footprint(self, req: DecodeRequest, matched: int = 0) -> int:
+        """Worst-case pages a request pulls from the free list.  With
+        ``matched`` prompt tokens served by the prefix cache, only the
+        pages past the matched whole pages are charged (the copy-on-write
+        of a shared partial tail page among them): the whole pages attach
+        without free-list pressure."""
         total = len(req.prompt) + req.max_new_tokens
         if total > self.cfg.max_length:
             raise ValueError(f"prompt+max_new={total} exceeds max_length "
                              f"{self.cfg.max_length}")
-        return KVCachePool.pages_needed(total, self.pool.page_size)
+        ps = self.pool.page_size
+        return KVCachePool.pages_needed(total - matched // ps * ps, ps)
+
+    def _cache_insert(self, a: _Active) -> None:
+        """Offer a fully prefilled prompt's pages to the prefix cache,
+        once per sequence."""
+        if self.prefix_cache is None or a.inserted:
+            return
+        a.inserted = True
+        self.prefix_cache.insert(a.seq_id, a.result.prompt)
+
+    def _note_prefill(self, ntok: int) -> None:
+        self.prefill_tokens += ntok
+        self.max_prefill_tokens_step = max(self.max_prefill_tokens_step, ntok)
 
     def run(self, requests: Sequence[DecodeRequest]
             ) -> List[GeneratedSequence]:
@@ -772,27 +927,28 @@ class ContinuousBatchingLoop:
             waiting.append((req, seq))
         active: List[_Active] = []
         reserved_pages = 0
+        cache = self.prefix_cache
 
         def quarantine(batch: List[_Active], logits: torch.Tensor,
                        step_idx: int) -> Tuple[np.ndarray, set, float]:
             """One host copy of the step's logits; every non-finite row's
-            sequence is scrubbed, freed and failed.  Returns (host logits,
-            surviving row indices, post-sync step-end time)."""
-            nonlocal reserved_pages
-            host = logits.float().cpu().numpy()
-            now = time.perf_counter()  # after the sync: true step end
-            # every axis but the batch axis: [B, V] and verify's [B, Sq, V]
-            finite = np.isfinite(host.reshape(len(batch), -1)).all(axis=1)
-            for i in np.flatnonzero(~finite):
+            sequence is scrubbed, freed and failed, and its cached chain
+            quarantined (prefill_sched.evict_nonfinite).  Returns (host
+            logits, surviving row indices, post-sync step-end time)."""
+
+            def on_evict(i: int, now: float) -> None:
+                nonlocal reserved_pages
                 a = batch[i]
-                self.pool.scrub_seq_pages(a.seq_id)
-                self.pool.free_seq(a.seq_id)
                 self._release_draft(a)
                 active.remove(a)
                 a.result.error = NonFiniteSequenceError(a.seq_id, step_idx)
                 a.result.finished_at = now
                 reserved_pages -= a.charged
                 self.quarantined += 1
+
+            host, finite, now = prefill_sched.evict_nonfinite(
+                self.pool, cache, [a.seq_id for a in batch],
+                [a.matched for a in batch], logits, on_evict)
             return host, set(np.flatnonzero(finite).tolist()), now
 
         def emit(a: _Active, row: np.ndarray, now: float,
@@ -816,8 +972,100 @@ class ContinuousBatchingLoop:
                 active.remove(a)
                 a.result.finished_at = now
                 self.pool.free_seq(a.seq_id)
+                if cache is not None:
+                    cache.forget_seq(a.seq_id)
                 self._release_draft(a)
                 reserved_pages -= a.charged
+
+        def admit() -> List[_Active]:
+            """FIFO admission while a slot and the worst-case reservation
+            fit; a prefix-cache match is attached and charged only its
+            unshared pages, and the live attached pages no charge covers
+            are set aside."""
+            nonlocal reserved_pages
+            newly: List[_Active] = []
+            while waiting and len(active) < self.max_batch:
+                req, seq = waiting[0]
+                m = cache.match(req.prompt) if cache is not None else None
+                need = self._footprint(req, m.tokens if m else 0)
+                locked = (self.pool.uncharged_live_pages()
+                          if cache is not None else 0)
+                if reserved_pages + need > self.pool.num_pages - locked:
+                    break  # wait for retirements
+                waiting.pop(0)
+                seq.seq_id = self._next_seq_id
+                self._next_seq_id += 1
+                self.pool.allocate(seq.seq_id)
+                matched = 0
+                if m is not None:
+                    matched = cache.attach(seq.seq_id, m)
+                    if matched:
+                        self.prefix_hits += 1
+                        self.cached_prefill_tokens += matched
+                    else:
+                        self.prefix_misses += 1
+                seq.admitted_at = time.perf_counter()
+                a = _Active(req, seq.seq_id, seq, need, matched,
+                            prefill_sched.whole_eligible(
+                                matched, self._prefill_chunk))
+                active.append(a)
+                newly.append(a)
+                reserved_pages += need
+            # the up-front validation guarantees the head request fits an
+            # empty pool, so admission always progresses
+            return newly
+
+        def whole_prefill(group: List[_Active]) -> None:
+            """ONE whole-prompt prefill step for a co-admitted group."""
+            t0 = time.perf_counter()
+            step_idx = self.steps
+            logits = self.model.prefill_step(
+                self.pool, [a.seq_id for a in group],
+                [a.result.prompt for a in group])
+            self.steps += 1
+            self.prefill_steps += 1
+            self._note_prefill(sum(len(a.result.prompt) for a in group))
+            host, ok, now = quarantine(group, logits, step_idx)
+            self.prefill_step_s.append(now - t0)
+            done = []
+            for i, a in enumerate(group):
+                a.pos = len(a.result.prompt)
+                if i not in ok:
+                    continue
+                self._cache_insert(a)
+                if emit(a, host[i], now):
+                    done.append(a)
+            retire(done, now)
+
+        def chunk_prefill(chunkers: List[_Active]) -> None:
+            """One chunk step over the prefilling sequences, packed by
+            prefill_sched.plan_chunks; a sequence whose chunk completes
+            its prompt is inserted into the cache and emits its first
+            token."""
+            t0 = time.perf_counter()
+            step_idx = self.steps
+            idx, chunks, starts = prefill_sched.plan_chunks(
+                [a.result.prompt for a in chunkers],
+                [a.pos for a in chunkers], self._prefill_chunk,
+                flop_budget=self._prefill_flops)
+            sel = [chunkers[i] for i in idx]
+            logits = self.model.chunk_prefill_step(
+                self.pool, [a.seq_id for a in sel], chunks, starts)
+            self.steps += 1
+            self.prefill_steps += 1
+            self._note_prefill(sum(len(c) for c in chunks))
+            host, ok, now = quarantine(sel, logits, step_idx)
+            self.prefill_step_s.append(now - t0)
+            done = []
+            for i, a in enumerate(sel):
+                if i not in ok:
+                    continue
+                a.pos += len(chunks[i])
+                if a.pos >= len(a.result.prompt):
+                    self._cache_insert(a)
+                    if emit(a, host[i], now):
+                        done.append(a)
+            retire(done, now)
 
         def window_args(batch: List[_Active]):
             """The step's (windows, sinks) [B] int32 operands, or (None,
@@ -861,8 +1109,9 @@ class ContinuousBatchingLoop:
                 self.pool, [a.seq_id for a in batch], blocks,
                 [a.pos for a in batch], pad_to=self._speculate + 1,
                 **walk_args(batch))
-            self.max_decode_table_pages = max(self.max_decode_table_pages,
-                                              self.pool.max_live_pages())
+            self.max_decode_table_pages = max(
+                self.max_decode_table_pages,
+                self.pool.max_live_pages([a.seq_id for a in batch]))
             self.steps += 1
             self.decode_steps += 1
             self.spec_steps += 1
@@ -899,43 +1148,21 @@ class ContinuousBatchingLoop:
 
         try:
             while waiting or active:
-                newly: List[_Active] = []
-                while waiting and len(active) < self.max_batch:
-                    req, seq = waiting[0]
-                    need = self._footprint(req)
-                    if reserved_pages + need > self.pool.num_pages:
-                        break  # wait for retirements
-                    waiting.pop(0)
-                    seq.seq_id = self._next_seq_id
-                    self._next_seq_id += 1
-                    self.pool.allocate(seq.seq_id)
-                    seq.admitted_at = time.perf_counter()
-                    a = _Active(req, seq.seq_id, seq, need)
-                    active.append(a)
-                    newly.append(a)
-                    reserved_pages += need
-                # the up-front validation guarantees the head request fits
-                # an empty pool, so admission always progresses
-
-                if newly:
-                    t0 = time.perf_counter()
-                    step_idx = self.steps
-                    logits = self.model.prefill_step(
-                        self.pool, [a.seq_id for a in newly],
-                        [a.result.prompt for a in newly])
-                    self.steps += 1
-                    self.prefill_steps += 1
-                    host, ok, now = quarantine(newly, logits, step_idx)
-                    self.prefill_step_s.append(now - t0)
-                    done = []
-                    for i, a in enumerate(newly):
-                        a.pos = len(a.result.prompt)
-                        if i in ok and emit(a, host[i], now):
-                            done.append(a)
-                    retire(done, now)
+                whole = [a for a in admit() if a.whole]
+                if whole:
+                    whole_prefill(whole)
                     continue  # re-admit into freed slots before decoding
-
-                batch = list(active)
+                chunkers = [a for a in active if a.prefilling()]
+                decodable = [a for a in active if not a.prefilling()]
+                if chunkers and (not decodable or self._prefer_prefill):
+                    # chunk and decode steps alternate while both have work
+                    chunk_prefill(chunkers)
+                    self._prefer_prefill = False
+                    continue
+                if not decodable:
+                    continue
+                self._prefer_prefill = True
+                batch = decodable
                 evict_windowed(batch)
                 blocks = [self._draft_block(a) for a in batch]
                 t0 = time.perf_counter()
@@ -948,7 +1175,8 @@ class ContinuousBatchingLoop:
                     [a.result.tokens[-1] for a in batch],
                     [a.pos for a in batch], **walk_args(batch))
                 self.max_decode_table_pages = max(
-                    self.max_decode_table_pages, self.pool.max_live_pages())
+                    self.max_decode_table_pages,
+                    self.pool.max_live_pages([a.seq_id for a in batch]))
                 self.steps += 1
                 self.decode_steps += 1
                 host, ok, now = quarantine(batch, logits, step_idx)
@@ -964,6 +1192,8 @@ class ContinuousBatchingLoop:
             # pages go back to the pool before the error propagates
             for a in active:
                 self.pool.free_seq(a.seq_id)
+                if cache is not None:
+                    cache.forget_seq(a.seq_id)
                 self._release_draft(a)
             active.clear()
             raise

@@ -1,5 +1,6 @@
 """Paged KV-cache pool (counterpart of paddle_tpu/serving/kvcache.py,
-reduced to what greedy continuous batching with speculation calls).
+reduced to what greedy continuous batching with speculation and a prefix
+cache calls).
 
 The pool is one preallocated torch tensor per K and V of shape
 ``[num_layers, H_kv, num_pages, page_size, head_dim]`` on the pool's
@@ -21,8 +22,23 @@ the integer selects first, ``pages, slots`` stay adjacent and the view
 is ``[H, T, D]`` — so the port transposes the ``[T, H, D]`` rows before
 the write.
 
+Pages are REFCOUNTED, the substrate of the prefix cache
+(``prefixcache.py``): an allocated page holds one count for its owning
+sequence and one more for each reader that shares it read-only — another
+sequence (``attach_prefix``) or a prefix-cache entry (``retain_pages``).
+Every way a page leaves a table (``free_seq``, ``truncate_seq``,
+``evict_interior``, ``release_pages``) drops ONE hold, and only pages
+that reach zero return to the free list and clear their int8 scales.  A
+shared page is immutable: the first append into a shared, partly filled
+tail page copies it onto a fresh page first (copy-on-write, in the same
+atomic claim as the append).  Under pressure ``append_tokens`` calls the
+registered reclaimers (the prefix cache's LRU eviction) before it raises
+PagePoolExhausted.  ``_allocator`` maps each page to the live sequence
+whose admission charge covers it; ``uncharged_live_pages`` counts the
+table pages no charge covers.
+
 ``truncate_seq`` is the speculative rollback: rejected draft tokens
-leave the table, and only pages it empties return to the free list.
+leave the table, each page leaving it dropping one hold.
 
 ``evict_interior`` is sliding-window + attention-sink eviction: the pages a
 windowed decode can never attend again leave the table, which is then
@@ -30,6 +46,8 @@ compacted, and the kept pages' token positions move into the handle's
 explicit ``starts``.  ``page_tables_with_starts`` and
 ``two_level_tables`` are the batch views the windowed kernel walks.
 
+``dtype="bfloat16"`` pools hold K/V rounded to bf16 (to nearest even, as
+the JAX pool's ``.at[].set`` into a bf16 array rounds).
 ``dtype="int8"`` pools hold amax-quantized pages with one fp32 scale per
 (layer, page) for each of K and V, in ``k_scales``/``v_scales`` [L, P]
 on the pool's DEVICE (0 = no content), where the JAX pool keeps them in
@@ -37,16 +55,15 @@ host numpy.  ``write_kv`` quantizes with the JAX pool's arithmetic (see
 ``_quantized_write``); freed, truncated-away and scrubbed pages clear
 their scales.
 
-Left for later slices: refcounted pages and copy-on-write (prefix
-cache), bf16 pages, export and import (tiered KV, fleet handoff) and
-defrag.  Tables are unshared, so a page leaving a table is freed.  The
-pool is driven from one thread (the decode loop) and takes no lock.
+Left for later slices: export and import (tiered KV, fleet handoff),
+defrag and its remap hook, and ``reclaim_orphans``.  The pool is driven
+from one thread (the decode loop) and takes no lock.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -98,14 +115,15 @@ class SequenceHandle:
         return last + page_size - self.length
 
 
-_DTYPES = {"float32": torch.float32, "int8": torch.int8}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "int8": torch.int8}
 
 
 class KVCachePool:
     """Preallocated paged K/V storage for every layer of one model.
 
-    ``dtype`` is "float32" (default) or "int8" (per-page scales; bf16
-    pools are not ported yet).  ``num_heads`` is the model's QUERY head
+    ``dtype`` is "float32" (default), "bfloat16" or "int8" (per-page
+    scales).  ``num_heads`` is the model's QUERY head
     count; the pool stores ``num_kv_heads`` (None: num_heads) heads, and
     ``H_q % H_kv != 0`` raises GroupedHeadsError.  ``device=None`` is
     the card (raises without one); pass ``device="cpu"`` explicitly for
@@ -146,10 +164,19 @@ class KVCachePool:
         # LIFO free list: recently freed pages are reused first
         self._free: List[int] = list(range(self.num_pages - 1, -1, -1))
         self._tables: Dict[int, SequenceHandle] = {}
+        # per-page holds: 0 free, 1 one owner, > 1 shared read-only
+        self._ref: List[int] = [0] * self.num_pages
+        # page -> the live sequence whose admission charge covers it
+        self._allocator: Dict[int, int] = {}
+        # fn(pages_short) -> pages freed, called before PagePoolExhausted
+        self._reclaim_hooks: List[Callable[[int], int]] = []
+        # fn() -> {page: holds} no table explains (prefix-cache entries)
+        self._owner_hooks: List[Callable[[], Dict[int, int]]] = []
         self._index_memo = None  # write_kv's last (pages, slots, index)
         self._stats = {"page_allocs": 0, "page_frees": 0, "token_appends": 0,
                        "used_pages_high_water": 0, "tokens_truncated": 0,
-                       "pages_evicted": 0}
+                       "pages_evicted": 0, "cow_copies": 0,
+                       "shared_attach_pages": 0}
 
     # -- sizing ---------------------------------------------------------
 
@@ -196,22 +223,43 @@ class KVCachePool:
         self._tables[seq_id] = h
         return h
 
+    def _drop_holds(self, seq_id: Optional[int],
+                    pages: Sequence[int]) -> List[int]:
+        """Drop one hold on each of ``pages`` (in the order given), held by
+        sequence ``seq_id`` (None: by no sequence): a page that reaches
+        zero returns to the free list with its scales cleared; one that
+        readers keep alive loses its charge if this sequence carried it.
+        Returns the freed pages."""
+        freed: List[int] = []
+        for p in pages:
+            self._ref[p] -= 1
+            if self._ref[p] <= 0:
+                self._ref[p] = 0
+                self._free.append(p)
+                self._allocator.pop(p, None)
+                freed.append(p)
+            elif seq_id is not None and self._allocator.get(p) == seq_id:
+                del self._allocator[p]
+        self._clear_scales(freed)
+        self._stats["page_frees"] += len(freed)
+        return freed
+
     def free_seq(self, seq_id: int) -> int:
-        """Retire a sequence: its pages return to the free list.  Returns
-        the number of pages released."""
+        """Retire a sequence: each of its pages drops one hold, and only
+        pages that reach zero return to the free list (pages shared with
+        the prefix cache or other sequences stay live).  Returns the
+        number of pages freed."""
         h = self._tables.pop(seq_id)
-        self._free.extend(reversed(h.pages))
-        self._clear_scales(h.pages)
-        self._stats["page_frees"] += len(h.pages)
-        return len(h.pages)
+        return len(self._drop_holds(seq_id, list(reversed(h.pages))))
 
     def truncate_seq(self, seq_id: int, length: int) -> int:
         """Shrink a sequence's table to ``length`` tokens: the
         speculative rollback of rejected draft tokens.  Pages past
-        ceil(length / page_size) leave the table and return to the free
-        list (LIFO, as free_seq returns them), their scales cleared; the
-        kept tail page's surplus slots hold stale content that the
-        length masks and the next append overwrites.  On an evicted table
+        ceil(length / page_size) leave the table, each dropping one hold
+        (LIFO, as free_seq drops them): only pages that reach zero are
+        freed, their scales cleared; the kept tail page's surplus slots
+        hold stale content that the length masks and the next append
+        overwrites.  On an evicted table
         the pages whose start lies below ``length`` stay, and a length
         inside a dropped interior gap raises.  Returns the number of
         pages freed.  ``length`` must lie in [0, current length]: growth
@@ -242,10 +290,7 @@ class KVCachePool:
         h.pages = h.pages[:keep]
         self._stats["tokens_truncated"] += h.length - n
         h.length = n
-        self._free.extend(reversed(dropped))
-        self._clear_scales(dropped)
-        self._stats["page_frees"] += len(dropped)
-        return len(dropped)
+        return len(self._drop_holds(seq_id, list(reversed(dropped))))
 
     def evict_interior(self, seq_id: int, window: int,
                        sinks: int = 0) -> int:
@@ -255,10 +300,11 @@ class KVCachePool:
         and wholly outside every future query's window (``st + page_size
         <= length - window``; window >= 1 keeps the tail page, and the
         window's trailing edge only moves forward).  The kept pages'
-        positions move into the handle's ``starts``; the dropped pages
-        return to the free list (in reversed order, as truncate_seq
-        returns them) with their int8 scales cleared.  Returns the number
-        of pages dropped (also counted in ``stats()["pages_evicted"]``)."""
+        positions move into the handle's ``starts``; each dropped page
+        drops one hold (in reversed order, as truncate_seq drops them),
+        and only those that reach zero are freed.  Returns the number of
+        pages dropped from this table (also counted in
+        ``stats()["pages_evicted"]``)."""
         window = int(window)
         sinks = int(sinks)
         if window < 1:
@@ -275,24 +321,109 @@ class KVCachePool:
         dropped = [p for i, p in enumerate(h.pages) if i not in kept]
         h.starts = [starts[i] for i in keep]
         h.pages = [h.pages[i] for i in keep]
-        self._free.extend(reversed(dropped))
-        self._clear_scales(dropped)
+        self._drop_holds(seq_id, list(reversed(dropped)))
         self._stats["pages_evicted"] += len(dropped)
-        self._stats["page_frees"] += len(dropped)
         return len(dropped)
 
+    # -- sharing (the prefix-cache substrate) ---------------------------
+
+    def attach_prefix(self, seq_id: int, pages: Sequence[int],
+                      length: int) -> None:
+        """Attach already-written pages read-only to a sequence with an
+        empty table: each page gains one hold and the sequence starts at
+        ``length`` tokens, which must land in the last page — the prefix
+        cache's hit path, with no free-list pressure."""
+        pages = [int(p) for p in pages]
+        if length < 1 or not pages:
+            raise ValueError("attach_prefix needs pages covering >= 1 token")
+        cap = len(pages) * self.page_size
+        if not cap - self.page_size < length <= cap:
+            raise ValueError(
+                f"length {length} does not land in the last of "
+                f"{len(pages)} pages (page_size {self.page_size})")
+        h = self._tables[seq_id]
+        if h.pages or h.length:
+            raise ValueError(
+                f"sequence {seq_id} already holds pages — prefixes attach "
+                "only at admission")
+        for p in pages:
+            if not 0 <= p < self.num_pages or self._ref[p] < 1:
+                raise ValueError(f"page {p} is not live — cannot share a "
+                                 "free or out-of-range page")
+        for p in pages:
+            self._ref[p] += 1
+        h.pages = list(pages)
+        h.length = int(length)
+        self._stats["shared_attach_pages"] += len(pages)
+
+    def retain_pages(self, pages: Sequence[int]) -> None:
+        """One more hold on each live page (a prefix-cache entry pinning
+        a prompt's page)."""
+        for p in pages:
+            if not 0 <= int(p) < self.num_pages or self._ref[int(p)] < 1:
+                raise ValueError(f"page {p} is not live")
+        for p in pages:
+            self._ref[int(p)] += 1
+
+    def release_pages(self, pages: Sequence[int], scrub: bool = False) -> int:
+        """Drop one hold on each page; pages that reach zero return to the
+        free list.  With ``scrub`` their K/V content is zeroed first, so a
+        page dropped on suspicion of poison never carries non-finite
+        values to its next owner (masked attention multiplies unwritten
+        slots by zero weights, and 0 * NaN is NaN).  Returns how many
+        pages were freed."""
+        freed = self._drop_holds(None, [int(p) for p in pages])
+        if scrub and freed:
+            self._scrub(freed)
+        return len(freed)
+
+    def _scrub(self, pages: Sequence[int]) -> None:
+        """Zero the K/V content of ``pages`` and their scales (a scrubbed
+        int8 page dequantizes to exactly zero)."""
+        idx = torch.as_tensor(list(pages), dtype=torch.long,
+                              device=self.device)
+        self.k_pages[:, :, idx] = 0
+        self.v_pages[:, :, idx] = 0
+        self._clear_scales(pages)
+
     def scrub_seq_pages(self, seq_id: int) -> int:
-        """Zero a live sequence's page content and scales — the quarantine
-        path calls this before free_seq so non-finite K/V (or a NaN
-        scale) never reaches the next owner of the page.  Returns how
-        many pages were scrubbed."""
-        pages = self._tables[seq_id].pages
-        if pages:
-            idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
-            self.k_pages[:, :, idx] = 0
-            self.v_pages[:, :, idx] = 0
-            self._clear_scales(pages)
-        return len(pages)
+        """Zero the content and scales of a live sequence's pages that it
+        alone holds (refcount 1) — the quarantine path calls this before
+        free_seq so non-finite K/V (or a NaN scale) never reaches the
+        next owner of the page.  Shared pages are left to their other
+        readers.  Returns how many pages were scrubbed."""
+        own = [p for p in self._tables[seq_id].pages if self._ref[p] == 1]
+        if own:
+            self._scrub(own)
+        return len(own)
+
+    def refcount(self, page: int) -> int:
+        return self._ref[int(page)]
+
+    def table_snapshot(self, seq_id: int) -> Tuple[List[int], int]:
+        """(pages, length): a copy of one sequence's table."""
+        h = self._tables[seq_id]
+        return list(h.pages), h.length
+
+    def uncharged_live_pages(self) -> int:
+        """Distinct pages in live tables whose charging sequence has
+        retired (attached prefixes the cache kept alive past their
+        allocator).  No admission charge covers them, and no reclaimer may
+        free them while a reader lives, so admission sets this many
+        aside."""
+        live = {p for h in self._tables.values() for p in h.pages}
+        return sum(1 for p in live if p not in self._allocator)
+
+    def register_reclaimer(self, fn: Callable[[int], int]) -> None:
+        """``fn(pages_short) -> freed`` runs when an append finds too few
+        free pages (the prefix cache's LRU eviction), before
+        PagePoolExhausted."""
+        self._reclaim_hooks.append(fn)
+
+    def register_owner(self, fn: Callable[[], Dict[int, int]]) -> None:
+        """``fn() -> {page: holds}`` explains holds no table covers (the
+        prefix cache's entries) to check_invariants."""
+        self._owner_hooks.append(fn)
 
     def append_token(self, seq_ids: Sequence[int]
                      ) -> Tuple[np.ndarray, np.ndarray]:
@@ -305,8 +436,10 @@ class KVCachePool:
                       ) -> Tuple[np.ndarray, np.ndarray]:
         """Claim (page, slot)s for counts[i] new tokens on sequence i in ONE
         atomic step.  Returns (pages [T], slots [T]) int32 flattened in
-        (sequence order, token order).  Raises PagePoolExhausted before
-        mutating any table."""
+        (sequence order, token order).  A shared, partly filled tail page
+        is copied onto a fresh page before the first append into it
+        (counted in the claim).  Short of pages, the reclaimers run first;
+        PagePoolExhausted is raised before any table changes."""
         counts = [int(c) for c in counts]
         if len(counts) != len(seq_ids) or any(c < 0 for c in counts):
             raise ValueError("counts must align with seq_ids and be >= 0")
@@ -314,8 +447,14 @@ class KVCachePool:
         for s, c in zip(seq_ids, counts):
             h = self._tables[s]
             free_slots = h.tail_free_slots(self.page_size)
+            if c > 0 and free_slots and self._ref[h.pages[-1]] > 1:
+                need += 1  # the copy-on-write of the shared tail
             if c > free_slots:
                 need += self.pages_needed(c - free_slots, self.page_size)
+        for fn in self._reclaim_hooks:
+            if need <= len(self._free):
+                break
+            fn(need - len(self._free))
         if need > len(self._free):
             raise PagePoolExhausted(
                 f"pool: need {need} fresh pages for "
@@ -326,9 +465,15 @@ class KVCachePool:
         i = 0
         for s, c in zip(seq_ids, counts):
             h = self._tables[s]
+            if (c > 0 and h.tail_free_slots(self.page_size)
+                    and self._ref[h.pages[-1]] > 1):
+                self._cow_tail(h)
             for _ in range(c):
                 if h.tail_free_slots(self.page_size) == 0:
-                    h.pages.append(self._free.pop())
+                    p = self._free.pop()
+                    self._ref[p] = 1
+                    self._allocator[p] = h.seq_id
+                    h.pages.append(p)
                     if h.starts is not None:
                         # evicted table: the fresh tail page starts at the
                         # current length (a page multiple: the tail was full)
@@ -343,12 +488,31 @@ class KVCachePool:
             self._stats["used_pages_high_water"], self.used_pages)
         return pages, slots
 
+    def _cow_tail(self, h: SequenceHandle) -> None:
+        """Copy-on-write of a sequence's shared, partly filled tail page:
+        a fresh page takes the content of every layer of K and V (and an
+        int8 page's scales), the original drops this sequence's hold, and
+        the table's tail becomes the copy."""
+        old = h.pages[-1]
+        new = self._free.pop()
+        self._ref[new] = 1
+        self._allocator[new] = h.seq_id
+        self._ref[old] -= 1
+        self.k_pages[:, :, new] = self.k_pages[:, :, old]
+        self.v_pages[:, :, new] = self.v_pages[:, :, old]
+        if self.quantized:
+            self.k_scales[:, new] = self.k_scales[:, old]
+            self.v_scales[:, new] = self.v_scales[:, old]
+        h.pages[-1] = new
+        self._stats["page_allocs"] += 1
+        self._stats["cow_copies"] += 1
+
     def write_kv(self, layer: int, pages, slots, k: torch.Tensor,
                  v: torch.Tensor) -> None:
         """Write token K/V for ``layer`` in place: k/v [T, H_kv, D] into the
         claimed (page, slot)s (distinct pairs, as append_tokens returns
         them, as host arrays or tensors).  An int8 pool amax-quantizes on
-        the way in."""
+        the way in; a bf16 pool rounds to nearest even."""
         pg, sl, upages, inv = self._write_index(pages, slots)
         if self.quantized:
             self._quantized_write(self.k_pages[layer], self.k_scales[layer],
@@ -358,8 +522,9 @@ class KVCachePool:
             return
         # torch keeps `pages, slots` adjacent after the head slice: the
         # indexed view is [H, T, D] (module docstring)
-        self.k_pages[layer][:, pg, sl] = k.transpose(0, 1)
-        self.v_pages[layer][:, pg, sl] = v.transpose(0, 1)
+        dt = self.k_pages.dtype
+        self.k_pages[layer][:, pg, sl] = k.transpose(0, 1).to(dt)
+        self.v_pages[layer][:, pg, sl] = v.transpose(0, 1).to(dt)
 
     def _write_index(self, pages, slots):
         """(pages, slots) as long tensors on the pool's device and, for an
@@ -497,10 +662,12 @@ class KVCachePool:
     def length(self, seq_id: int) -> int:
         return self._tables[seq_id].length
 
-    def max_live_pages(self) -> int:
-        """Longest live table's page count (0 when idle): the width of
-        the decode step's table walk."""
-        return max((len(h.pages) for h in self._tables.values()), default=0)
+    def max_live_pages(self, seq_ids: Optional[Sequence[int]] = None) -> int:
+        """Longest page count of the tables of ``seq_ids`` (None: every
+        live table; 0 when none): the width of a step's table walk."""
+        hs = (self._tables.values() if seq_ids is None
+              else [self._tables[s] for s in seq_ids])
+        return max((len(h.pages) for h in hs), default=0)
 
     # -- accounting -----------------------------------------------------
 
@@ -518,32 +685,44 @@ class KVCachePool:
                     live_sequences=len(self._tables))
 
     def check_invariants(self) -> Dict:
-        """Audit page ownership: every page id is either on the free list
-        exactly once or in exactly one page table, and every table's
-        length fits its pages with no spare whole page.  An evicted
-        table's starts must be one per page, page multiples, strictly
-        rising, with the tail page the one covering the length.  An int8
-        pool also
-        audits its scales (``scale_errors``): a free page carrying a scale
-        in any layer, or a live written page whose scales are set in some
-        layers and 0 in others (all 0 is a scrubbed page, legitimate).
-        Returns a report dict — ``ok`` plus the violating page / sequence
-        ids."""
-        owners = [0] * self.num_pages
+        """Audit page ownership against the refcounts: every page is free
+        (on the free list exactly once, no holder) or live with a refcount
+        equal to its table occurrences plus the registered owners' holds
+        (prefix-cache entries) — a page shared by N sequences and the
+        cache is N + 1-held and fine.  Every table's length fits its pages
+        with no spare whole page; an evicted table's starts are one per
+        page, page multiples, strictly rising, with the tail page the one
+        covering the length.  An int8 pool also audits its scales
+        (``scale_errors``): a free page carrying a scale in any layer, or
+        a live written page (one a length covers, or an owner holds) whose
+        scales are set in some layers and 0 in others (all 0 is a scrubbed
+        page, legitimate).  Returns a report dict — ``ok`` plus the
+        violating page / sequence ids."""
+        true_refs = [0] * self.num_pages
         double: List[int] = []
         mismatches: List[int] = []
         for h in self._tables.values():
+            seen = set()
             for p in h.pages:
                 if not 0 <= p < self.num_pages:
                     double.append(p)
                     continue
-                owners[p] += 1
+                if p in seen:
+                    double.append(p)  # twice in one table
+                seen.add(p)
+                true_refs[p] += 1
             if h.starts is None:
                 cap = h.capacity(self.page_size)
                 if h.length > cap or cap - h.length >= self.page_size:
                     mismatches.append(h.seq_id)
             elif not _starts_ok(h, self.page_size):
                 mismatches.append(h.seq_id)
+        held = set()
+        for fn in self._owner_hooks:
+            for p, holds in fn().items():
+                if 0 <= int(p) < self.num_pages:
+                    true_refs[int(p)] += int(holds)
+                    held.add(int(p))
         free_errors: List[int] = []
         seen_free = set()
         for p in self._free:
@@ -551,16 +730,18 @@ class KVCachePool:
                 free_errors.append(p)
                 continue
             seen_free.add(p)
-            if owners[p]:
-                double.append(p)  # free AND owned
-        double += [p for p in range(self.num_pages) if owners[p] > 1]
+            if true_refs[p]:
+                double.append(p)  # free AND held
         orphaned = [p for p in range(self.num_pages)
-                    if not owners[p] and p not in seen_free]
+                    if not true_refs[p] and p not in seen_free]
+        ref_bad = [p for p in range(self.num_pages)
+                   if self._ref[p] != true_refs[p]]
+        # more holders than the refcount covers: a free would return a
+        # page still in use
+        double += [p for p in ref_bad if true_refs[p] > self._ref[p]]
         scale_bad: List[int] = []
         if self.quantized:
-            # the pages the length covers: every page of an evicted table
-            # (its length spans more pages than it keeps)
-            written = set()
+            written = set(held)
             for h in self._tables.values():
                 written.update(
                     h.pages[:self.pages_needed(h.length, self.page_size)])
@@ -569,18 +750,20 @@ class KVCachePool:
             mixed = (((ks != 0).any(0) & (ks == 0).any(0))
                      | ((vs != 0).any(0) & (vs == 0).any(0))).tolist()
             for p in range(self.num_pages):
-                if (not owners[p] and some[p]) or (p in written
-                                                   and mixed[p]):
+                if (not true_refs[p] and some[p]) or (p in written
+                                                      and mixed[p]):
                     scale_bad.append(p)
         return {
             "ok": not (orphaned or double or free_errors or mismatches
-                       or scale_bad),
+                       or ref_bad or scale_bad),
             "orphaned_pages": orphaned,
             "double_owned_pages": sorted(set(double)),
+            "refcount_mismatches": ref_bad,
             "free_list_errors": free_errors,
             "length_mismatches": mismatches,
             "scale_errors": scale_bad,
             "used_pages": self.used_pages,
+            "shared_pages": sum(1 for r in true_refs if r > 1),
             "live_sequences": len(self._tables),
         }
 

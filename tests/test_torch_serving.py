@@ -316,6 +316,8 @@ def test_loop_refuses_a_pool_on_another_device():
 def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.serving.speculative, "
+            "paddle_tpu_torch.serving.prefixcache, "
+            "paddle_tpu_torch.serving.prefill_sched, "
             "paddle_tpu_torch.kernels.flash_attention, "
             "paddle_tpu_torch.kernels.paged_attention, "
             "paddle_tpu_torch.kernels.conv_epilogue, "

@@ -172,7 +172,7 @@ def test_verify_contract_validation_and_cpu_counts_no_launch():
     assert out.shape == q.shape
     assert tpaged.paged_decode_attention.launches_by_variant == before
     assert set(before) == {"decode_f32", "verify_f32", "decode_i8",
-                           "verify_i8"}
+                           "verify_i8", "decode_bf16", "verify_bf16"}
 
 
 # -- 3, 4: the pool -----------------------------------------------------------
