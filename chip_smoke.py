@@ -202,6 +202,24 @@ prints no final result line):
    distance of a CPU run on the image scaled by 1 + 2^-20 (in bf16 the
    step is chaotic: that perturbation alone moves the gradients by about
    120% in norm).
+5b. The program linter's kernel tier (``paddle_tpu_torch.analysis``) and
+   the two corpus kernels (``csrc/corpus.cu``, kernel rows 8 and 9).
+   ``corpus_add`` bit-equal to its plain version on [512, 128] + a [512]
+   broadcast, [513, 128] (off the thread block) and [7, 129] (the scalar
+   path); ``corpus_scale`` over [2, 4096, 4096] at tile_rows 8 (128 KiB a
+   block) and 12 (192 KiB, a ragged last tile).  ``corpus_smem_optin``
+   must equal the linter's budget, 232448.  Then, the counters zeroed: both
+   corpus programs captured (no launch) and linted, ``broadcast_lse``
+   exactly broadcast-operand at 262144 bytes, ``vmem_overflow`` exactly
+   shared-memory-overflow at 67108864 bytes; ``run_corpus_program(
+   "broadcast_lse")`` and its captured graph bit-equal to the plain
+   version; ``run_corpus_program("vmem_overflow")`` refused with
+   ``KernelLaunchError`` carrying cudaErrorInvalidValue (asserted: the
+   phase fails if that launch returns or raises anything else);
+   tile_rows 14 (229376 bytes) clean and launched, bit-equal, tile_rows 15
+   (245760) flagged and refused the same way; launches 2 corpus_add and 1
+   corpus_scale.  Three controls must lint clean: the add with a
+   full-size b, a 32 KiB broadcast, the scale at tile_rows 8.
 6. Times from CUDA events (median of 30 after warm-up, the launches queued
    behind a device sleep so host overhead stays out): each kernel, its
    plain version, its bound (bytes over 3.35 TB/s or fp32 flops over
@@ -222,7 +240,10 @@ prints no final result line):
    calls in bf16 on channels-last tensors; the bf16 entries of rows 4a
    (serving shape and a 4080-token context), 4b (Sq 5), 4d and 4e (34
    live pages) at the fp32 rows' shapes, bytes at 2-byte pages, SDPA in
-   bf16.
+   bf16;
+   rows 8 and 9 at the corpus shapes (corpus_add on [512, 128], library
+   call x + lse[:, None]; corpus_scale over [2, 4096, 4096] at tile_rows
+   8, library call x * 2), bounds from bytes.
 
 Each phase prints one JSON line; the line before the last is the
 ``kernels`` summary and the last line is exactly
@@ -3742,6 +3763,229 @@ def phase_conv_timing_bf16(torch, conv_err, launches):
     return [first, epi]
 
 
+# -- phase 5b: the analysis tier -------------------------------------------
+
+CUDA_ERROR_INVALID_VALUE = 1  # what a refused shared-memory request returns
+ADD_PARITY_SHAPES = ((512, 128), (513, 128), (7, 129))
+SCALE_SHAPE = (2, 4096, 4096)
+SCALE_TILES = (8, 12)        # 128 KiB; 192 KiB with a ragged last tile
+BOUNDARY_TILES = (14, 15)    # 229376 and 245760 bytes a block
+TIMED_TILE = 8
+
+
+def _refusal(_build, run, what):
+    """The cudaError_t of a launch that must be refused: it fails the phase
+    if the launch returns, or raises anything but KernelLaunchError with
+    cudaErrorInvalidValue."""
+    try:
+        run()
+    except _build.KernelLaunchError as e:
+        if e.code != CUDA_ERROR_INVALID_VALUE:
+            raise AssertionError(f"{what}: refused with cudaError_t {e.code}, "
+                                 f"expected {CUDA_ERROR_INVALID_VALUE} "
+                                 f"(cudaErrorInvalidValue): {e}") from e
+        return e.code
+    raise AssertionError(f"{what}: the launch was expected to be refused "
+                         "and returned")
+
+
+def _one_finding(findings, detector, what, **expect):
+    if [f.detector for f in findings] != [detector]:
+        raise AssertionError(f"{what}: expected exactly one {detector} "
+                             f"finding, got {[f.as_dict() for f in findings]}")
+    f = findings[0]
+    got = {k: getattr(f, k) for k in expect}
+    if f.severity != "error" or got != expect:
+        raise AssertionError(f"{what}: expected an error with {expect}, got "
+                             f"{f.as_dict()}")
+    return f.as_dict()
+
+
+def phase_analysis(torch, np):
+    """The linter's kernel tier on the card: corpus_add and corpus_scale
+    bit-equal to their plain versions, the card's shared-memory limit
+    against the linter's budget, then (counters zeroed) the main path:
+    capture and lint both corpus programs (no launch), run them through
+    run_corpus_program and the captured graph, the tile_rows 14 / 15
+    boundary where the linter's verdict must match what the card accepts,
+    and three clean controls.  Returns (max abs errors, launches)."""
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch.analysis import corpus as lint
+    from paddle_tpu_torch.analysis.kernels import (
+        detect_shared_memory_overflow)
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import corpus as ck
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 11)
+
+    def normal(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    errs = {"corpus_add": 0.0, "corpus_scale": 0.0}
+
+    def bit_equal(got, want, what):
+        """Fails unless got == want bit for bit; the largest error of each
+        kernel is kept for the kernels line."""
+        err = (got - want).abs().max().item()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: not bit-equal to the plain version "
+                                 f"(max abs error {err})")
+        kernel = "corpus_add" if got.dim() == 2 else "corpus_scale"
+        errs[kernel] = max(errs[kernel], err)
+
+    parity = []
+    for rows, cols in ADD_PARITY_SHAPES:
+        x, lse = normal(rows, cols), normal(rows)
+        b = lse[:, None].expand(rows, cols).contiguous()
+        bit_equal(ck.corpus_add(x, b), ck.corpus_add_reference(x, b),
+                  f"corpus_add [{rows}, {cols}]")
+        parity.append({"kernel": "corpus_add", "shape": [rows, cols]})
+    x = normal(*SCALE_SHAPE)
+    want = ck.corpus_scale_reference(x)
+    for tile in SCALE_TILES:
+        bit_equal(ck.corpus_scale(x, tile), want,
+                  f"corpus_scale tile_rows {tile}")
+        parity.append({"kernel": "corpus_scale", "shape": list(SCALE_SHAPE),
+                       "tile_rows": tile, "smem_bytes":
+                       ck.corpus_scale_smem_bytes(x.shape, x.dtype, tile)})
+    optin = ck.smem_per_block_optin()
+    if optin != analysis.H100_SMEM_PER_BLOCK_OPTIN:
+        raise AssertionError(
+            f"the card's cudaDevAttrMaxSharedMemoryPerBlockOptin is {optin}, "
+            f"the linter's budget {analysis.H100_SMEM_PER_BLOCK_OPTIN}")
+
+    # the main path: capture, lint, run
+    ck.reset_launches()
+    arts = {name: lint.build_corpus_program(name) for name in lint.CORPUS}
+    captured_launches = ck.corpus_add.launches + ck.corpus_scale.launches
+    if captured_launches:
+        raise AssertionError(f"capturing launched {captured_launches} kernels")
+    verdicts = {
+        "broadcast_lse": _one_finding(
+            analysis.run_detectors(arts["broadcast_lse"]),
+            "broadcast-operand", "broadcast_lse", bytes=262144),
+        "vmem_overflow": _one_finding(
+            analysis.run_detectors(arts["vmem_overflow"]),
+            "shared-memory-overflow", "vmem_overflow",
+            smem_bytes=67108864, budget=optin)}
+    inputs = lint.corpus_inputs("broadcast_lse")
+    out = lint.run_corpus_program("broadcast_lse")
+    bit_equal(out, ck.corpus_add_reference(
+        inputs[0], inputs[1][:, None].expand(512, 128)),
+        "run_corpus_program('broadcast_lse')")
+    bit_equal(arts["broadcast_lse"].exported.module()(*inputs), out,
+              "the captured broadcast_lse graph")
+    refused = {"vmem_overflow": _refusal(
+        _build, lambda: lint.run_corpus_program("vmem_overflow"),
+        "run_corpus_program('vmem_overflow')")}
+    boundary = []
+    for tile in BOUNDARY_TILES:
+        art = analysis.capture_fn(lambda t: ck.corpus_scale(t, tile),
+                                  analysis.TensorSpec(SCALE_SHAPE),
+                                  name=f"corpus_scale_tile_{tile}")
+        flagged = detect_shared_memory_overflow(art, budget=optin)
+        smem = ck.corpus_scale_smem_bytes(SCALE_SHAPE, torch.float32, tile)
+        if smem <= optin:
+            if flagged:
+                raise AssertionError(f"tile_rows {tile} ({smem} bytes) fits "
+                                     f"and was flagged: {flagged}")
+            bit_equal(ck.corpus_scale(x, tile), want,
+                      f"corpus_scale tile_rows {tile}")
+            code = 0
+        else:
+            _one_finding(flagged, "shared-memory-overflow",
+                         f"tile_rows {tile}", smem_bytes=smem)
+            code = _refusal(_build, lambda: ck.corpus_scale(x, tile),
+                            f"corpus_scale tile_rows {tile}")
+        boundary.append({"tile_rows": tile, "smem_bytes": smem,
+                         "flagged": bool(flagged), "launched": not code,
+                         "cuda_error": code})
+    if [b["launched"] for b in boundary] != [True, False]:
+        raise AssertionError(f"boundary: {boundary}")
+    launches = {"corpus_add": ck.corpus_add.launches,
+                "corpus_scale": ck.corpus_scale.launches}
+    if launches != {"corpus_add": 2, "corpus_scale": 1}:
+        raise AssertionError(f"main-path launches {launches}, expected 2 "
+                             "corpus_add (the program and its captured "
+                             "graph) and 1 corpus_scale (tile_rows 14)")
+
+    # controls the linter must pass
+    F32 = analysis.TensorSpec
+    controls = {
+        "add, full-size b": analysis.capture_fn(
+            ck.corpus_add, F32((512, 128)), F32((512, 128))),
+        "add, 32 KiB broadcast": analysis.capture_fn(
+            lambda x, v: ck.corpus_add(
+                x, v[:, None].expand(64, 128).contiguous()),
+            F32((64, 128)), F32((64,))),
+        f"scale, tile_rows {TIMED_TILE}": analysis.capture_fn(
+            lambda t: ck.corpus_scale(t, TIMED_TILE), F32(SCALE_SHAPE)),
+    }
+    for what, art in controls.items():
+        findings = analysis.run_detectors(art)
+        if findings:
+            raise AssertionError(f"control '{what}' was flagged: "
+                                 f"{[f.as_dict() for f in findings]}")
+    del x, want
+    emit({"phase": "analysis", "torch": torch.__version__,
+          "parity": "bit-equal", "cases": parity, "max_abs_err": errs,
+          "smem_per_block_optin": optin,
+          "linter_budget": analysis.H100_SMEM_PER_BLOCK_OPTIN,
+          "fingerprints": {n: a.fingerprint for n, a in arts.items()},
+          "verdicts": verdicts, "refused": refused, "boundary": boundary,
+          "controls_clean": list(controls), "launches": launches})
+    return errs, launches
+
+
+def phase_analysis_timing(torch, np, errs, launches):
+    """Row 8 (corpus_add) at the corpus shape, x [512, 128] + a materialised
+    [512] broadcast, and row 9 (corpus_scale) over [2, 4096, 4096] at
+    tile_rows 8.  Bounds: each input read and the output written once over
+    3.35 TB/s.  Library calls: x + lse[:, None] by torch broadcasting (it
+    reads the [512] vector, not the materialised operand), and x * 2."""
+    from paddle_tpu_torch.kernels import corpus as ck
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 12)
+    x = torch.from_numpy(rng.standard_normal((512, 128),
+                                             dtype=np.float32)).to(dev)
+    lse = torch.from_numpy(rng.standard_normal(512, dtype=np.float32)).to(dev)
+    b = lse[:, None].expand(512, 128).contiguous()
+    src = "paddle_tpu_torch/kernels/csrc/corpus.cu"
+    add = _row(
+        "corpus_add", src, "paddle_tpu/analysis/corpus.py:37",
+        launches["corpus_add"], errs["corpus_add"],
+        device_ms(torch, lambda: ck.corpus_add(x, b)),
+        device_ms(torch, lambda: ck.corpus_add_reference(x, b)),
+        3 * 4 * x.numel(), x.numel(),
+        device_ms(torch, lambda: x + lse[:, None]),
+        {"x": [512, 128], "b": [512, 128], "library_call":
+         "x + lse[:, None] (torch broadcasting)"})
+    xs = torch.from_numpy(rng.standard_normal(SCALE_SHAPE,
+                                              dtype=np.float32)).to(dev)
+    scale = _row(
+        "corpus_scale", src, "paddle_tpu/analysis/corpus.py:177",
+        launches["corpus_scale"], errs["corpus_scale"],
+        device_ms(torch, lambda: ck.corpus_scale(xs, TIMED_TILE)),
+        device_ms(torch, lambda: ck.corpus_scale_reference(xs)),
+        2 * 4 * xs.numel(), xs.numel(),
+        device_ms(torch, lambda: xs * 2),
+        {"x": list(SCALE_SHAPE), "tile_rows": TIMED_TILE,
+         "smem_bytes": ck.corpus_scale_smem_bytes(xs.shape, xs.dtype,
+                                                  TIMED_TILE),
+         "library_call": "x * 2"})
+    rows = [add, scale]
+    emit({"phase": "analysis_timing", "method": "CUDA events, median of 30 "
+          "after 5 warm-up calls, queued behind torch.cuda._sleep",
+          "rows": [dict(r) for r in rows]})
+    for r in rows:
+        r.pop("shape")
+        r["launches_by_path"] = {"analysis": r["launches"]}
+    return rows
+
+
 # -- phase 6: timing -------------------------------------------------------
 
 def device_ms(torch, fn, reps=30, warmup=5):
@@ -4187,6 +4431,7 @@ def main() -> int:
     conv_launches, by_shape, trace = phase_resnet(torch, np, fluid)
     torch.cuda.empty_cache()
     resnet_amp_launches = phase_resnet_amp(torch, np, fluid)
+    analysis_err, analysis_launches = phase_analysis(torch, np)
     kernels = phase_timing(torch, np, reqs, parity_err, serve_launches)
     kernels += phase_spec_timing(torch, np, spec_reqs, spec_err,
                                  spec_launches)
@@ -4219,6 +4464,8 @@ def main() -> int:
                                  trace)
     kernels += phase_conv_timing_bf16(torch, conv_bf16_err,
                                       resnet_amp_launches)
+    kernels += phase_analysis_timing(torch, np, analysis_err,
+                                     analysis_launches)
     # flash_fwd runs on every path and paged_decode on both fp32 serving
     # paths: their launches are the counted runs' sums
     by_path = {"serving": serve_launches["flash_fwd"],

@@ -13,8 +13,17 @@ version and a launch counter.
 | conv_epilogue.py `_bn_epilogue_kernel`            | csrc/conv_epilogue.cu  |
 |                                                   | (`bn_epilogue_f32`)    |
 
+| Linter corpus (paddle_tpu/analysis)               | Port                   |
+| ------------------------------------------------- | ---------------------- |
+| corpus.py `_broadcast_lse_operand` (row 8)        | csrc/corpus.cu         |
+| (`_add_kernel`: x + b)                            | (`corpus_add_f32`)     |
+| corpus.py `_vmem_overflow` (row 9)                | csrc/corpus.cu         |
+| (`_scale_kernel`: 2x, a whole-block tile)         | (`corpus_scale_f32`)   |
+
 Import the wrappers from their modules (``kernels.flash_attention``,
-``kernels.paged_attention``, ``kernels.conv_epilogue``); this package
+``kernels.paged_attention``, ``kernels.conv_epilogue``,
+``kernels.corpus``, whose two ops are ``torch.library`` custom ops, so
+the linter sees each launch in a captured graph); this package
 re-exports nothing, so a module name never resolves to a function of the
 same name.
 """

@@ -31,7 +31,8 @@ __all__ = ["BUILD_DIR", "KernelBuildError", "KernelLaunchError",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "conv_epilogue")
+SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "conv_epilogue",
+           "corpus")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -43,7 +44,12 @@ class KernelBuildError(RuntimeError):
 
 
 class KernelLaunchError(RuntimeError):
-    """A kernel's C entry returned a non-zero cudaError_t."""
+    """A kernel's C entry returned a non-zero cudaError_t, kept in
+    ``.code``."""
+
+    def __init__(self, message: str, code: int = 0):
+        super().__init__(message)
+        self.code = code
 
 
 def nvcc() -> str:
@@ -114,4 +120,4 @@ def check(err: int, kernel: str) -> None:
     """Raise :class:`KernelLaunchError` for a non-zero cudaError_t."""
     if err:
         raise KernelLaunchError(
-            f"{kernel}: launch failed with cudaError_t {err}")
+            f"{kernel}: launch failed with cudaError_t {err}", err)
