@@ -66,6 +66,17 @@ prints no final result line):
    chunk, l from the rounded p, q unrounded) must each fail that gate in
    every case; and each bf16 launch against the fp32 entry on the same
    pages widened to fp32, within 2^-5 * max |fp32|.
+   The paged kernel's cluster split at forced cluster sizes S in {1, 2,
+   16} and at the wrapper's own S: fp32, int8 and bf16 pages at the
+   4080-token lengths with a 0-length row and rows that end in rank 0's
+   range, Sq 1 and 5, on flat tables, on unevicted tables whose windows
+   hide whole ranks' ranges, on compacted tables and on two-level tables,
+   each against its plain version under its gate (fp32 and int8: 1e-4 *
+   max(1, max |plain|); bf16: the bf16 gate above); the flat launch
+   against the starts walk and the two-level walk against the compacted
+   starts walk reported (expected bit-equal); and a planted fault, the
+   naive split (each rank's range from its own max, a plain model), that
+   must fail the bf16 gate at S 2 and 16.
 3. Serving at the Transformer-base width (vocab 10000, d_model 512,
    8 heads, 6 layers, d_inner 2048, max_length 256; random weights from a
    seed): ``ContinuousBatchingLoop.run`` on 16 requests (prompts of 16-128
@@ -1292,7 +1303,7 @@ def phase_longctx_parity(torch):
 
 # bf16 paged parity (kernel row 4 in bf16): lengths at the serving shape
 # and at a 4080-token context, pages of 16 and 24 slots (24 does not divide
-# the kernel's 64-slot chunk), G 1 and 2 at D 64, B 8
+# the kernel's 256-slot ring stage), G 1 and 2 at D 64, B 8
 BF16_PARITY_LENS = {"serving": [144, 33, 66, 18, 150, 99, 120, 47],
                     "ctx4080": [4080, 3001, 1500, 700, 530, 100, 17, 5]}
 BF16_PARITY_PAGES = (16, 24)
@@ -1421,6 +1432,222 @@ def phase_bf16_paged_parity(torch):
             f"{bad[:3]}; {len(caught)} planted faults passed it "
             f"{caught[:3]}; {len(far)} beyond the fp32 bound {far[:3]}")
     return {k: max(v) for k, v in errs.items()}
+
+
+# the cluster split (kernel row 4, every entry): forced cluster sizes, the
+# 4080-token lengths with the last row's length set to 0, and per dtype
+# the (H_q, H_kv, D) configurations
+CLUSTER_FORCED = (1, 2, 16)
+CLUSTER_HEADS = {"float32": ((8, 8, 64), (8, 2, 128)), "int8": ((8, 8, 64),),
+                 "bfloat16": ((8, 8, 64), (8, 4, 64))}
+NAIVE_SPLIT_S = (2, 16)
+
+
+def _naive_split(torch, pa, q, kp, vp, tables, lengths, q_lengths, S):
+    """Plain model of the kernel's cluster split over a flat bf16 walk in
+    which every rank's range starts from its own max instead of the
+    prefix max handed in (the planted fault): ranks of ceil(n / S) whole
+    pages, per-page running max from NEG_INF/2, w = bf16(p) * exp(m_k -
+    M_end), l from the unrounded p, the ranks summed in order."""
+    from paddle_tpu_torch.kernels.flash_attention import NEG_INF
+
+    B, Hq, Sq, D = q.shape
+    Hkv, _, ps, _ = kp.shape
+    R = Hq // Hkv * Sq
+    dev = q.device
+    ln = lengths.long()
+    ql = (torch.full((B,), Sq, device=dev) if q_lengths is None
+          else q_lengths.long())
+    slots = tables.shape[1] * ps
+    j = torch.arange(slots, device=dev)
+    dead = (j[None, :] >= ln[:, None])[:, None, :, None]
+    k = pa.gather_kv_pages(kp, tables).float().masked_fill(dead, 0.0)
+    v = pa.gather_kv_pages(vp, tables).float().masked_fill(dead, 0.0)
+    qr = q.to(torch.bfloat16).float().reshape(B, Hkv, R, D)
+    qpos = (ln - ql)[:, None] + (torch.arange(R, device=dev) % Sq)[None, :]
+    vis = ((j[None, None, :] <= qpos[:, :, None])
+           & (j[None, None, :] < ln[:, None, None]))
+    s_all = (torch.matmul(qr, k.transpose(-1, -2)) * D ** -0.5).masked_fill(
+        ~vis[:, None], NEG_INF)
+    out = torch.zeros(B, Hkv, R, D, device=dev)
+    for b in range(B):
+        n = -(-int(ln[b]) // ps)
+        if not n:
+            continue
+        ppr = -(-n // S)
+        m_end = torch.maximum(s_all[b, :, :, :n * ps].amax(-1, keepdim=True),
+                              torch.tensor(NEG_INF / 2, device=dev))
+        acc = torch.zeros(Hkv, R, D, device=dev)
+        l = torch.zeros(Hkv, R, 1, device=dev)
+        for i in range(S):
+            m = torch.full((Hkv, R, 1), NEG_INF / 2, device=dev)
+            for e in range(i * ppr, min((i + 1) * ppr, n)):
+                sl = slice(e * ps, (e + 1) * ps)
+                sp = s_all[b, :, :, sl]
+                m = torch.maximum(m, sp.amax(-1, keepdim=True))
+                p = torch.exp(sp - m)
+                ek = torch.exp(m - m_end)
+                acc += torch.matmul(p.to(torch.bfloat16).float() * ek,
+                                    v[b, :, sl])
+                l += (p * ek).sum(-1, keepdim=True)
+        out[b] = acc / l.clamp_min(1e-30)
+    return out.to(torch.bfloat16).float().reshape(B, Hq, Sq, D)
+
+
+def phase_cluster_parity(torch):
+    """The paged kernel's cluster split at forced cluster sizes S in
+    CLUSTER_FORCED and at the wrapper's own, for fp32, int8 and bf16
+    pages at the 4080-token lengths (the last row's length 0; rows of 17
+    and 5 tokens end in rank 0's range), Sq 1 and 5, on four walks: flat
+    tables; unevicted tables with explicit starts and the window + sink
+    mask (a window of 64 or 1 without sinks hides whole ranks' ranges);
+    tables compacted by evict_interior; two-level tables of 16-page
+    blocks.  Gate on the valid rows: fp32 and int8 within PARITY_TOL *
+    max(1, max |plain|) of paged_windowed_reference, bf16 the bf16 gate
+    against paged_bf16_reference.  Reported: the flat launch against the
+    unwindowed starts walk and the two-level against the compacted starts
+    walk, at each S (expected bit-equal).  Planted fault: the naive split
+    (_naive_split) against each bf16 flat launch at S in NAIVE_SPLIT_S
+    must fail the bf16 gate."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    dev = torch.device("cuda")
+    rng = torch.Generator(device=dev).manual_seed(SEED + 11)
+    win, snk = _lc_windows(torch, dev)
+    qlens = torch.tensor(LC_PARITY_QLENS, dtype=torch.int32, device=dev)
+    lengths = BF16_PARITY_LENS["ctx4080"]
+    B = len(lengths)
+    cases, exact, naive = [], [], []
+    errs = {"f32": [], "i8": [], "bf16": []}
+
+    def on_dev(*arrays):
+        return [torch.as_tensor(a, device=dev) for a in arrays]
+
+    for dtype, heads in CLUSTER_HEADS.items():
+        for Hq, Hkv, D in heads:
+            full, ids = _lc_pool(torch, serving, rng, Hq, Hkv, D, dtype, dev,
+                                 lengths=lengths)
+            ev, _ = _lc_pool(torch, serving, rng, Hq, Hkv, D, dtype, dev,
+                             win, snk, lengths=lengths)
+            t_f, ln_f = on_dev(*full.page_table_batch(ids))
+            t_u, st_u, _ = on_dev(*full.page_tables_with_starts(ids))
+            t_c, st_c, ln_c = on_dev(*ev.page_tables_with_starts(ids))
+            tl, ln_tl = ev.two_level_tables(ids, LC_BLOCK)
+            tl, ln_tl = _two_level_on(torch, pa, tl, dev), on_dev(ln_tl)[0]
+            for ln in (ln_f, ln_c, ln_tl):
+                ln[-1] = 0
+            wk = {"windows": win, "sinks": snk}
+            walks = [("flat", full, t_f, ln_f, {}),
+                     ("starts_unevicted", full, t_u, ln_f,
+                      dict(wk, page_starts=st_u)),
+                     ("compacted", ev, t_c, ln_c, dict(wk, page_starts=st_c)),
+                     ("two_level", ev, tl, ln_tl, wk)]
+            tag = f"{dtype}_Hq{Hq}_Hkv{Hkv}_D{D}"
+            for sq in (1, SPEC_D + 1):
+                q = torch.randn(B, Hq, sq, D, generator=rng, device=dev)
+                ql = qlens if sq > 1 else None
+                rows = _valid_rows(torch, qlens, sq, dev)
+                got_at = {}
+                for walk, pool, t, ln, kw in walks:
+                    kp, vp = pool.k_pages[0], pool.v_pages[0]
+                    ks, vs = pool.layer_scales(0)
+                    if dtype == "bfloat16":
+                        want = pa.paged_bf16_reference(
+                            q, kp, vp, t, ln, ql, kw.get("page_starts"),
+                            kw.get("windows"), kw.get("sinks"), D ** -0.5)
+                    else:
+                        want = pa.paged_windowed_reference(
+                            q, kp, vp, t, ln, ql, kw.get("page_starts"),
+                            kw.get("windows"), kw.get("sinks"), D ** -0.5,
+                            ks, vs)
+                    own = pa.cluster_for(q, kp, t)
+                    for S in CLUSTER_FORCED + (None,):
+                        got = pa.paged_decode_attention(
+                            q, kp, vp, t, ln, q_lengths=ql, k_scales=ks,
+                            v_scales=vs, _cluster=S, **kw)
+                        torch.cuda.synchronize()
+                        name = (f"{tag}_sq{sq}_{walk}_S"
+                                f"{S if S is not None else f'{own}(own)'}")
+                        if dtype == "bfloat16":
+                            g = _rows_gate(got, want, rows)
+                        else:
+                            m = rows.expand_as(got)
+                            err = float((got - want)[m].abs().max())
+                            bound = PARITY_TOL * max(
+                                1.0, float(want[m].abs().max()))
+                            g = {"max_abs_err": err, "bound": bound,
+                                 "ok": err <= bound}
+                        cases.append(dict(case=name, **g))
+                        errs[POOL_SFX[dtype][1:]].append(g["max_abs_err"])
+                        got_at[walk, S] = got
+                        if dtype == "bfloat16" and walk == "flat" \
+                                and S in NAIVE_SPLIT_S:
+                            naive.append(dict(case=name, **_rows_gate(
+                                got, _naive_split(torch, pa, q, kp, vp, t,
+                                                  ln, ql, S), rows)))
+                for S in CLUSTER_FORCED + (None,):
+                    for a, b, label in (
+                            ("flat", None, "flat_launch_vs_starts_walk"),
+                            ("two_level", "compacted",
+                             "two_level_vs_compacted_starts_walk")):
+                        if b is None:
+                            kp, vp = full.k_pages[0], full.v_pages[0]
+                            ks, vs = full.layer_scales(0)
+                            other = pa.paged_decode_attention(
+                                q, kp, vp, t_u, ln_f, q_lengths=ql,
+                                k_scales=ks, v_scales=vs, page_starts=st_u,
+                                _cluster=S)
+                        else:
+                            other = got_at[b, S]
+                        torch.cuda.synchronize()
+                        m = rows.expand_as(other)
+                        diff = float((got_at[a, S] - other)[m].abs().max())
+                        exact.append({"case": f"{tag}_sq{sq}_S{S}_{label}",
+                                      "max_abs_diff": diff,
+                                      "exact": diff == 0.0})
+            del full, ev
+    emit({"phase": "cluster_parity", "forced_S": list(CLUSTER_FORCED),
+          "tolerance": f"fp32 / int8: max abs err <= {PARITY_TOL} * max(1, "
+          f"max |plain|); bf16: <= {BF16_ULP} * max |plain| and at most "
+          f"{MISMATCH_SHARE} not bit-equal; valid rows; the naive split "
+          "must fail the bf16 gate",
+          "lengths": lengths[:-1] + [0], "q_lengths_at_sq5": LC_PARITY_QLENS,
+          "windows": win.tolist(), "sinks": snk.tolist(),
+          "max_err_over_bound": max(c["max_abs_err"] / c["bound"]
+                                    for c in cases),
+          "bf16_max_mismatch_share": max(c["mismatch_share"] for c in cases
+                                         if "mismatch_share" in c),
+          "naive_split_min_share": min(c["mismatch_share"] for c in naive),
+          "exact_identities_hold": all(c["exact"] for c in exact),
+          "exact_identities": exact, "naive_split": naive, "cases": cases})
+    bad = [c for c in cases if not c["ok"]]
+    caught = [c for c in naive if c["ok"]]
+    if bad or caught or not naive:
+        raise AssertionError(
+            f"cluster parity: {len(bad)} cases beyond the gate {bad[:3]}; "
+            f"{len(caught)} naive-split cases passed it {caught[:3]}")
+    return {k: max(v) for k, v in errs.items()}
+
+
+CLUSTER_SWEEP = (1, 2, 4, 8)
+
+
+def _cluster_sweep(torch, run, sizes=CLUSTER_SWEEP):
+    """{S: device ms} of run(S) at forced cluster sizes: the evidence for
+    the wrapper's choice of S."""
+    return {S: device_ms(torch, lambda: run(S)) for S in sizes}
+
+
+def _cluster_shape(pa, q, k_pages, tables):
+    """The cluster size S the wrapper launches these operands with, and
+    the grid's blocks, for a timing row's shape."""
+    B, Hq, Sq, D = q.shape
+    Hkv = k_pages.shape[0]
+    R = Hq // Hkv * Sq
+    rt = min(R, 1024 // D)
+    S = pa.cluster_for(q, k_pages, tables)
+    return {"cluster_S": S, "grid_blocks": S * B * Hkv * -(-R // rt)}
 
 
 def make_longctx_requests(serving, np, window=None, motif=False):
@@ -2004,7 +2231,11 @@ def phase_longctx_timing(torch, np, errs, launches):
     snk = torch.full((B,), LC_SINKS, dtype=torch.int32, device=dev)
 
     def row(name, replaces, n_launch, err, kernel, plain, t, st, ln, w, k,
-            table_bytes, shape):
+            table_bytes, shape, walk_t=None):
+        """``walk_t``: the tables the kernel walks (a TwoLevelTables over
+        the flat ``t``), for the cluster size."""
+        shape = dict(shape, **_cluster_shape(
+            pa, q, kp, t if walk_t is None else walk_t))
         vis = _lc_visible(torch, pa, t, st, ln, w, k, dev)
         n_vis = int(vis.sum())
         kg = pa.gather_kv_pages(kp, t)
@@ -2019,6 +2250,9 @@ def phase_longctx_timing(torch, np, errs, launches):
 
     t, st, ln = (torch.as_tensor(a, device=dev)
                  for a in pool.page_tables_with_starts(ids))
+    sweep = {"paged_decode_4080": _cluster_sweep(
+        torch, lambda S: pa.paged_decode_attention(q, kp, vp, t, ln,
+                                                   _cluster=S))}
     flat = row("paged_decode", "paddle_tpu/kernels/paged_attention.py:645",
                launches["no_window"]["by_variant"]["decode_f32"], None,
                lambda: pa.paged_decode_attention(q, kp, vp, t, ln),
@@ -2045,6 +2279,10 @@ def phase_longctx_timing(torch, np, errs, launches):
         lambda: pa.paged_windowed_reference(q, kp, vp, t, ln, None, st, win,
                                             snk, scale),
         t, st, ln, win, snk, 4 * (2 * t.numel() + 3 * B), shape)]
+    sweep["paged_starts_window_34_pages"] = _cluster_sweep(
+        torch, lambda S: pa.paged_decode_attention(
+            q, kp, vp, t, ln, page_starts=st, windows=win, sinks=snk,
+            _cluster=S))
     tl, _ = pool.two_level_tables(ids, LC_BLOCK)
     tl = _two_level_on(torch, pa, tl, dev)
     rows.append(row(
@@ -2059,14 +2297,15 @@ def phase_longctx_timing(torch, np, errs, launches):
                                             win, snk, scale),
         t, st, ln, win, snk,
         4 * (tl.l1.numel() + tl.l2.numel() + tl.starts.numel() + 3 * B),
-        dict(shape, block_size=LC_BLOCK)))
+        dict(shape, block_size=LC_BLOCK), walk_t=tl))
     emit({"phase": "longctx_timing", "method": "CUDA events, median of 30 "
           "after 5 warm-up calls, queued behind torch.cuda._sleep",
           "library_call": "SDPA over K/V already gathered through the "
           "table, boolean mask of the visible keys (gather not timed)",
           "rows": [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms", "shape")}
-                   for r in [flat] + rows]})
+                   for r in [flat] + rows],
+          "cluster_sweep_ms": sweep})
     for r in rows:
         r.pop("shape")
     flat.pop("shape")
@@ -2125,7 +2364,8 @@ def phase_bf16_paged_timing(torch, np, reqs, spec_reqs, errs, launches):
             nbytes, 4 * D * n_vis,
             device_ms(torch, lambda: F.scaled_dot_product_attention(
                 qb, kg, vg, attn_mask=vis, scale=scale)),
-            dict(shape, visible_pairs_per_head=n_vis // H),
+            dict(shape, visible_pairs_per_head=n_vis // H,
+                 **_cluster_shape(pa, q, kp, t)),
             flops_per_s=BF16_FLOPS_PER_S)
 
     def flat_vis(ln, kv_len, sq):
@@ -2147,6 +2387,10 @@ def phase_bf16_paged_timing(torch, np, reqs, spec_reqs, errs, launches):
         q = torch.randn(len(lens), H, sq, D, generator=rng, device=dev)
         kw = ({"q_lengths": torch.full((len(lens),), sq, dtype=torch.int32,
                                        device=dev)} if sq > 1 else {})
+        extra[name] = _cluster_sweep(
+            torch, lambda S: pa.paged_decode_attention(q, kp, vp, t, ln,
+                                                       _cluster=S, **kw),
+            (1, 2))
         rows.append(timed(
             name, n_launch, errs[name[len("paged_"):]], q, kp, vp, t, ln,
             flat_vis(ln, t.shape[1] * PAGE_SIZE, sq), kw,
@@ -2182,6 +2426,9 @@ def phase_bf16_paged_timing(torch, np, reqs, spec_reqs, errs, launches):
                   "lengths": [L] * B, "table_pages": t.shape[1]})
     extra["at_long_context"] = {k: flat[k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}
+    extra["paged_decode_bf16_4080"] = _cluster_sweep(
+        torch, lambda S: pa.paged_decode_attention(q, kp, vp, t, ln,
+                                                   _cluster=S))
     for i in ids:
         pool.truncate_seq(i, L - 1)
         pool.evict_interior(i, LC_WINDOW, LC_SINKS)
@@ -2194,6 +2441,10 @@ def phase_bf16_paged_timing(torch, np, reqs, spec_reqs, errs, launches):
     shape = {"B": B, "H_q": H, "H_kv": H, "D": D, "page_size": PAGE_SIZE,
              "lengths": [L] * B, "window": LC_WINDOW, "sinks": LC_SINKS,
              "live_pages": t.shape[1]}
+    extra["paged_starts_window_bf16_34_pages"] = _cluster_sweep(
+        torch, lambda S: pa.paged_decode_attention(
+            q, kp, vp, t, ln, page_starts=st, windows=win, sinks=snk,
+            _cluster=S))
     lc = launches["longctx"]
     rows.append(timed(
         "paged_starts_window_bf16",
@@ -2216,7 +2467,9 @@ def phase_bf16_paged_timing(torch, np, reqs, spec_reqs, errs, launches):
           "rows": [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms", "shape")}
                    for r in rows],
-          "paged_decode_bf16_at_long_context": extra["at_long_context"]})
+          "paged_decode_bf16_at_long_context": extra["at_long_context"],
+          "cluster_sweep_ms": {k: v for k, v in extra.items()
+                               if k != "at_long_context"}})
     for r in rows:
         r.pop("shape")
     extra["at_long_context"].pop("shape")
@@ -4069,7 +4322,7 @@ def phase_timing(torch, np, reqs, parity_err, launches):
         device_ms(torch, lambda: F.scaled_dot_product_attention(
             qd, kg, vg, attn_mask=kmask, scale=scale)),
         {"B": B, "H_q": H, "H_kv": H, "D": D, "page_size": PAGE_SIZE,
-         "lengths": dlens}))
+         "lengths": dlens, **_cluster_shape(pa, qd, kp, tables)}))
     emit({"phase": "timing", "method": "CUDA events, median of 30 after 5 "
           "warm-up calls, queued behind torch.cuda._sleep",
           "library_call": {"flash_fwd": "SDPA with a boolean causal+padding "
@@ -4144,7 +4397,8 @@ def phase_spec_timing(torch, np, reqs, errs, launches):
             device_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, kg, vg, attn_mask=vis, scale=scale)),
             {"B": B, "H_q": H, "H_kv": H, "D": D, "Sq": sq,
-             "page_size": PAGE_SIZE, "pool": dtype, "lengths": lens}))
+             "page_size": PAGE_SIZE, "pool": dtype, "lengths": lens,
+             **_cluster_shape(pa, q, kp, tables)}))
     emit({"phase": "spec_timing", "method": "CUDA events, median of 30 "
           "after 5 warm-up calls, queued behind torch.cuda._sleep",
           "library_call": "SDPA over K/V already gathered (and "
@@ -4415,6 +4669,7 @@ def main() -> int:
     spec_err = phase_spec_parity(torch)
     lc_err = phase_longctx_parity(torch)
     bf16p_err = phase_bf16_paged_parity(torch)
+    phase_cluster_parity(torch)
     bwd_err = phase_bwd_parity(torch)
     bf16_err = phase_bf16_parity(torch)
     conv_err = phase_conv_parity(torch, fluid)

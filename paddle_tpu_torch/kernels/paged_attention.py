@@ -25,8 +25,7 @@ else raises :class:`GroupedHeadsError`.
   kernel computes on bf16 pages, rounding where it rounds: q to bf16
   before QK, the running max once per page in the walk's order, p to
   bf16 for the PV product only (l sums the unrounded p), the output to
-  bf16.  Its page size must be at most 64.  Any other pool dtype raises
-  TypeError.
+  bf16.  Any other pool dtype raises TypeError.
 
 Six kernel variants, one CUDA kernel (``csrc/paged_decode.cu``):
 ``decode_f32``, ``verify_f32``, ``decode_i8``, ``verify_i8``,
@@ -35,7 +34,12 @@ Six kernel variants, one CUDA kernel (``csrc/paged_decode.cu``):
 
 - On a CUDA tensor it launches the variant or raises.  There is no
   envelope and no fallback: a geometry the kernel does not take is an
-  error, not a silent switch to the gather.
+  error, not a silent switch to the gather.  Each launch splits every
+  sequence's page walk across a thread-block cluster of S blocks;
+  :func:`cluster_for` picks S from the table width and the grid (the
+  private keyword ``_cluster`` forces it, for tests only).  A cluster the
+  card refuses raises :class:`~._build.KernelLaunchError`; nothing
+  retries with a smaller one.
 - On a CPU tensor it computes the plain version:
   :func:`paged_decode_reference` for Sq = 1 (gather, ``repeat_kv``,
   reference attention with ``k_lengths``) and
@@ -83,8 +87,9 @@ import torch
 from . import _build
 from .flash_attention import NEG_INF, reference_attention
 
-__all__ = ["BF16_FAULTS", "GroupedHeadsError", "PAD_START", "TABLE_WALKS",
-           "TwoLevelTables", "VARIANTS", "gather_kv_pages",
+__all__ = ["BF16_FAULTS", "CLUSTER_MAX", "GroupedHeadsError", "PAD_START",
+           "TABLE_WALKS", "TwoLevelTables", "VARIANTS", "cluster_for",
+           "cluster_size", "gather_kv_pages",
            "paged_bf16_reference", "paged_decode_attention",
            "paged_decode_reference", "paged_verify_reference",
            "paged_windowed_reference", "repeat_kv", "reset_launches"]
@@ -94,9 +99,6 @@ VARIANTS = ("decode_f32", "verify_f32", "decode_i8", "verify_i8",
 # the pool dtypes the kernel takes, and the suffix of their entries
 _POOL_DTYPES = {torch.float32: "_f32", torch.int8: "_i8",
                 torch.bfloat16: "_bf16"}
-# the most slots a bf16 page may hold: the kernel's chunk of 64 slots holds
-# whole pages, so that the running max updates once per page
-_BF16_MAX_PAGE = 64
 # planted faults of paged_bf16_reference, each one moved rounding point
 BF16_FAULTS = ("chunk_max", "l_rounded", "q_unrounded")
 TABLE_WALKS = ("flat", "starts", "two_level")
@@ -107,6 +109,17 @@ TABLE_WALKS = ("flat", "starts", "two_level")
 PAD_START = 0x3FFFFFFF
 _HEAD_DIMS = (64, 128)
 _MAX_GRID_Y = 65535
+# rows of one block's tile: RT * D <= 1024 outputs (csrc TILE_OUT)
+_TILE_OUT = 1024
+# the kernel's cluster sizes: 1 to 16 blocks (above 8 non-portable)
+CLUSTER_MAX = 16
+# the split aims at one block an SM of the card (measured fastest on the
+# H100: chip_smoke.py's cluster_sweep_ms, PERF.md) ...
+_CLUSTER_BLOCKS_PER_SM = 1
+# ... and gives each rank at least this many table slots (one ring stage
+# at head dim 64)
+_CLUSTER_MIN_SLOTS = 256
+_H100_SMS = 132
 
 
 class GroupedHeadsError(ValueError):
@@ -395,22 +408,49 @@ def _entry(name: str):
     fn = getattr(_build.library("paged_decode"), "paged_" + name)
     if name == "decode_f32":
         # q, k, v, tables, lengths, o; B, H_kv, G, P, page_size,
-        # max_pages, D; scale; stream
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        # max_pages, D, S; scale; stream
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
     elif name.startswith("walk"):
         # q, k, v, k_scales, v_scales, tables, l2, starts, lengths,
         # q_lengths, windows, sinks, o; B, H_kv, G, Sq, P, page_size,
-        # max_pages, block_size, n_blocks, D; scale; stream
-        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
+        # max_pages, block_size, n_blocks, D, S; scale; stream
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 11
                        + [ctypes.c_float, ctypes.c_void_p])
     else:
         # q, k, v, k_scales, v_scales, tables, lengths, q_lengths, o;
-        # B, H_kv, G, Sq, P, page_size, max_pages, D; scale; stream
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+        # B, H_kv, G, Sq, P, page_size, max_pages, D, S; scale; stream
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def cluster_size(max_pages: int, page_size: int, blocks: int) -> int:
+    """Blocks S of the cluster that splits each sequence's walk: the
+    largest power of two up to :data:`CLUSTER_MAX` that keeps ``blocks``
+    (B * H_kv * row tiles) * S within ``_CLUSTER_BLOCKS_PER_SM`` blocks
+    on each of the H100's SMs and leaves every rank at least
+    ``_CLUSTER_MIN_SLOTS`` slots of a ``max_pages``-wide table."""
+    s = 1
+    while (2 * s <= CLUSTER_MAX
+           and blocks * 2 * s <= _CLUSTER_BLOCKS_PER_SM * _H100_SMS
+           and max_pages * page_size >= 2 * s * _CLUSTER_MIN_SLOTS):
+        s *= 2
+    return s
+
+
+def cluster_for(q, k_pages, page_tables) -> int:
+    """The S that :func:`paged_decode_attention` launches with for these
+    operands (q [B, H_q, Sq, D], the pool, a flat table or a
+    :class:`TwoLevelTables`)."""
+    B, Hq, Sq, D = q.shape
+    Hkv, _, page_size, _ = k_pages.shape
+    R = Hq // Hkv * Sq
+    rt = min(R, _TILE_OUT // D)
+    width = (page_tables.max_pages if isinstance(page_tables, TwoLevelTables)
+             else torch.as_tensor(page_tables).shape[1])
+    return cluster_size(width, page_size, B * Hkv * -(-R // rt))
 
 
 def _check(q, k_pages, v_pages, tables, lengths, q_lengths, k_scales,
@@ -441,10 +481,6 @@ def _check(q, k_pages, v_pages, tables, lengths, q_lengths, k_scales,
         raise ValueError(f"pool head_dim {k_pages.shape[3]} != query {D}")
     if D not in _HEAD_DIMS:
         raise ValueError(f"paged_decode supports head_dim {_HEAD_DIMS}, got {D}")
-    if kv_dtype == torch.bfloat16 and k_pages.shape[2] > _BF16_MAX_PAGE:
-        raise ValueError(
-            f"a bf16 pool's pages hold at most {_BF16_MAX_PAGE} slots (the "
-            f"kernel's chunk holds whole pages), got {k_pages.shape[2]}")
     if B > _MAX_GRID_Y:
         raise ValueError(f"batch {B} exceeds the grid limit {_MAX_GRID_Y}")
     if tables.dim() != 2 or tables.shape[0] != B or lengths.shape != (B,):
@@ -510,13 +546,15 @@ def _walk_operands(page_tables, page_starts, windows, sinks, B, page_size,
 def paged_decode_attention(q, k_pages, v_pages, page_tables, lengths,
                            scale=None, q_lengths=None, k_scales=None,
                            v_scales=None, page_starts=None, windows=None,
-                           sinks=None) -> torch.Tensor:
+                           sinks=None, *, _cluster=None) -> torch.Tensor:
     """q [B, H_q, Sq, D] fp32; k_pages/v_pages [H_kv, P, page_size, D]
     fp32, int8 or bf16; page_tables [B, max_pages] int32 or a
     :class:`TwoLevelTables`; lengths [B] (the fed tokens already
     appended); q_lengths [B] (Sq > 1 only); k_scales / v_scales [P] fp32
     (int8 pools only); page_starts [B, max_pages] (flat tables only),
-    windows / sinks [B] int32.  Returns [B, H_q, Sq, D] fp32."""
+    windows / sinks [B] int32.  Returns [B, H_q, Sq, D] fp32.
+    ``_cluster`` forces the cluster size S (1 to :data:`CLUSTER_MAX`) of
+    a CUDA launch, for tests; the main path never passes it."""
     if q.dim() != 4:
         raise ValueError(f"decode query must be [B, H, Sq, D], got "
                          f"{tuple(q.shape)}")
@@ -553,6 +591,9 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, lengths,
             "window — pass windows with them")
     walk = ("two_level" if two else "starts"
             if page_starts is not None or windows is not None else "flat")
+    if _cluster is not None and not 1 <= int(_cluster) <= CLUSTER_MAX:
+        raise ValueError(f"_cluster must be 1 to {CLUSTER_MAX}, got "
+                         f"{_cluster}")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -580,6 +621,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, lengths,
                                                   q.device).reshape(-1)
     sfx = _POOL_DTYPES[k_pages.dtype]
     variant = ("verify" if Sq > 1 else "decode") + sfx
+    S = (int(_cluster) if _cluster is not None
+         else cluster_for(q, k_pages, page_tables))
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -590,13 +633,13 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, lengths,
         if variant == "decode_f32":
             args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                     tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                    B, Hkv, G, P, page_size, tables.shape[1], D,
+                    B, Hkv, G, P, page_size, tables.shape[1], D, S,
                     float(scale), stream)
         else:
             args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                     ptr(k_scales), ptr(v_scales), tables.data_ptr(),
                     lens.data_ptr(), ptr(qlens), out.data_ptr(),
-                    B, Hkv, G, Sq, P, page_size, tables.shape[1], D,
+                    B, Hkv, G, Sq, P, page_size, tables.shape[1], D, S,
                     float(scale), stream)
     else:
         tables, l2, starts, bs, win, snk = _walk_operands(
@@ -610,7 +653,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, lengths,
                 ptr(k_scales), ptr(v_scales), tables.data_ptr(), ptr(l2),
                 starts.data_ptr(), lens.data_ptr(), ptr(qlens), ptr(win),
                 ptr(snk), out.data_ptr(), B, Hkv, G, Sq, P, page_size,
-                max_pages, bs, n_blocks, D, float(scale), stream)
+                max_pages, bs, n_blocks, D, S, float(scale), stream)
     with torch.cuda.device(q.device):  # launch on the tensors' card
         err = _entry(entry)(*args)
     _build.check(err, "paged_" + entry)
