@@ -10,7 +10,8 @@ prints no final result line):
 
 1. The card's name and power limit (``nvidia-smi``), then the build of
    every CUDA kernel from ``paddle_tpu_torch/kernels/csrc`` (one ``nvcc``
-   per source, all started together) with its seconds and ptxas report.
+   per source, all started together) with its seconds and ptxas report
+   (each kernel instantiation's name, spills and registers).
 2. Kernel parity, fp32 with TF32 off: ``flash_fwd`` against
    ``reference_attention`` and ``paged_decode`` against
    ``paged_decode_reference`` at the serving path's shapes (max abs error
@@ -40,9 +41,11 @@ prints no final result line):
    The bf16 entries of flash_fwd, flash_bwd_dq and flash_bwd_dkv against
    their bf16 plain versions on the training shape and the same edges:
    each output within 2^-7 * max |plain| with at most 1% of its elements
-   not bit-equal, lse within 1e-5 relative; a planted fault (P, or dS,
-   dS^T and P^T, left unrounded before their products) must fail that
-   gate; and the bf16 kernels against the fp32 kernels on the same values
+   not bit-equal, lse within 1e-5 relative; planted faults (P, or dS,
+   dS^T and P^T, left unrounded before their products; dS built from the
+   bf16-rounded P, on dQ and dK) must fail that gate; each bf16 backward
+   entry launched twice on the same inputs gives bit-equal outputs; and
+   the bf16 kernels against the fp32 kernels on the same values
    (out within 2^-8 * (P|V| + |out|) elementwise, gradients within 2^-6
    in norm).
    The bf16 entries of conv_stats and bn_epilogue against their bf16
@@ -157,7 +160,8 @@ prints no final result line):
    finite, and the dropout-free loss of the trained state below the
    startup state's; the fused_attention inputs and layer_norm outputs
    bf16 under keep, fp32 under amp1; median step, tokens/s, peak memory
-   and a profiled step per tier.  Then, per tier, one batch-2 step with
+   and a profiled step per tier (device time by kernel and by kind).
+   Then, per tier, one batch-2 step with
    dropout 0 on the card and on the CPU: loss within 2^-6, gradients
    within 0.1 in norm (median leaf and all leaves); under keep every
    flash call of the card's step against the bf16 plain versions on the
@@ -254,7 +258,10 @@ prints no final result line):
    bf16;
    rows 8 and 9 at the corpus shapes (corpus_add on [512, 128], library
    call x + lse[:, None]; corpus_scale over [2, 4096, 4096] at tile_rows
-   8, library call x * 2), bounds from bytes.
+   8, library call x * 2), bounds from bytes.  ``flash_bwd_sweep``: the
+   bf16 backward kernels and SDPA's backward (boolean mask and
+   is_causal) at H 8, D 64, causal, B * S = 8192 and S 256 to 2048, with
+   the card's name and power limit.
 
 Each phase prints one JSON line; the line before the last is the
 ``kernels`` summary and the last line is exactly
@@ -310,8 +317,11 @@ def phase_build():
     t0 = time.perf_counter()
     report = _build.build()
     seconds = time.perf_counter() - t0
+    # ptxas names each kernel (mangled, template arguments included) and
+    # then gives its spills and registers
     ptxas = {name: [ln.strip() for ln in r["log"].splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "entry function" in ln or "registers" in ln
+                    or "spill" in ln]
              for name, r in report.items()}
     emit({"phase": "build", "seconds": seconds,
           "per_source_s": {n: r["seconds"] for n, r in report.items()},
@@ -480,14 +490,37 @@ def _moved_bwd(fa, q, k, v, k_lengths, out, lse, dout, causal, scale):
         f[0], f[1], f[2], k_lengths, f[3], lse, f[4], causal, scale))
 
 
+def _rounded_p_bwd(torch, fa, q, k, v, k_lengths, out, lse, dout, causal,
+                   scale):
+    """The bf16 backward with dS built from the bf16-rounded P instead of
+    the unrounded one (the shortcut the packed P^T fragment invites in
+    dkv): a moved rounding point, which dQ and dK must show.  Otherwise
+    flash_attention_bwd_reference's arithmetic."""
+    bf16 = torch.bfloat16
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    vis = fa._visible(q.shape[0], s.shape[-2], s.shape[-1], causal,
+                      k_lengths, q.device)
+    p = torch.where(vis, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    pr = p.to(bf16).float()
+    dvec = (dof * out.float()).sum(dim=-1, keepdim=True)
+    ds = pr * (torch.matmul(dof, vf.transpose(-1, -2)) - dvec) * scale
+    return (torch.matmul(ds.to(bf16).float(), kf).to(bf16),
+            torch.matmul(ds.transpose(-1, -2).to(bf16).float(), qf).to(bf16),
+            torch.matmul(pr.transpose(-1, -2), dof).to(bf16))
+
+
 def phase_bf16_parity(torch):
     """The bf16 entries of flash_fwd, flash_bwd_dq and flash_bwd_dkv
     against their bf16 plain versions (forward: 64-key tiles, as the
     kernel), on BWD_CASES in bf16, the backward on the kernel's own out
     and lse.  Each output: max abs error <= BF16_ULP * max |plain| and at
     most MISMATCH_SHARE of its elements not bit-equal; lse within
-    LSE_RTOL.  A planted fault — P unrounded before PV in the forward,
-    dS / dS^T / P^T unrounded in the backward — must fail that gate.
+    LSE_RTOL.  Planted faults must fail that gate: P unrounded before PV
+    in the forward, dS / dS^T / P^T unrounded in the backward, and dS
+    built from the bf16-rounded P (on dQ and dK).  Each bf16 backward
+    entry, launched twice on the same inputs, must give bit-equal
+    outputs (each output has one owner block, no atomics).
     Then the bf16 kernels against the fp32 kernels on the same
     (bf16-valued) inputs: out within 2^-8 * (sum_j P_ij |V_j| + |out|)
     elementwise (the rounding of P and of the output, at most half a
@@ -499,7 +532,7 @@ def phase_bf16_parity(torch):
     dev = torch.device("cuda")
     rng = torch.Generator(device=dev).manual_seed(SEED + 7)
     bf16 = torch.bfloat16
-    cases, faults, vs_fp32 = [], [], []
+    cases, faults, vs_fp32, relaunch = [], [], [], []
     errs = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
     for name, B, H, Sq, Sk, D, causal, lens in BWD_CASES:
         q, k, v, dout = (torch.randn(B, H, S, D, generator=rng,
@@ -518,6 +551,13 @@ def phase_bf16_parity(torch):
         moved_out = fa.flash_attention_fwd_reference(
             f[0], f[1], f[2], causal, scale, kl)[0].to(bf16)
         moved = _moved_bwd(fa, q, k, v, kl, out, lse, dout, causal, scale)
+        rounded_p = _rounded_p_bwd(torch, fa, q, k, v, kl, out, lse, dout,
+                                   causal, scale)
+        dvec = (dout.float() * out.float()).sum(dim=-1)
+        twice = [[fa.flash_bwd_dq(q, k, v, dout, lse, dvec, kl, causal,
+                                  scale),
+                  *fa.flash_bwd_dkv(q, k, v, dout, lse, dvec, kl, causal,
+                                    scale)] for _ in range(2)]
         out32, lse32 = fa.flash_attention_fwd(f[0], f[1], f[2], causal,
                                               scale, kl)
         grads32 = fa.flash_attention_bwd(f[0], f[1], f[2], kl, out32, lse32,
@@ -535,21 +575,29 @@ def phase_bf16_parity(torch):
                                  "dQ is not 0")
         lse_rel = float(((lse - want_lse).abs()
                          / want_lse.abs().clamp_min(1e-30))[live].max())
-        rows = [("flash_fwd", "out", out, want_out, moved_out)] + [
-            (kernel, what, g, w, m) for kernel, what, g, w, m in zip(
+        relaunch.append({"case": name, "bit_equal": {
+            what: bool(torch.equal(a, b)) for what, a, b in zip(
+                ("dq", "dk", "dv"), *twice)}})
+        rows = [("flash_fwd", "out", out, want_out,
+                 {"unrounded": moved_out})] + [
+            (kernel, what, g, w, bad) for kernel, what, g, w, bad in zip(
                 ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dkv"),
-                ("dq", "dk", "dv"), grads, want, moved)]
-        for kernel, what, got, plain, bad in rows:
+                ("dq", "dk", "dv"), grads, want,
+                ({"unrounded": moved[0], "ds_from_rounded_p": rounded_p[0]},
+                 {"unrounded": moved[1], "ds_from_rounded_p": rounded_p[1]},
+                 {"unrounded": moved[2]}))]
+        for kernel, what, got, plain, bads in rows:
             gate = _bf16_gate(got, plain)
             cases.append({"kernel": kernel + "_bf16", "case": name,
                           "what": what, **gate})
             errs[kernel].append(gate["max_abs_err"])
-            planted = _bf16_gate(got, bad)
-            faults.append({"kernel": kernel + "_bf16", "case": name,
-                           "what": what, "mismatch_share":
-                           planted["mismatch_share"], "max_abs_err":
-                           planted["max_abs_err"],
-                           "caught": not planted["ok"]})
+            for fault, bad in bads.items():
+                planted = _bf16_gate(got, bad)
+                faults.append({"kernel": kernel + "_bf16", "case": name,
+                               "what": what, "fault": fault,
+                               "mismatch_share": planted["mismatch_share"],
+                               "max_abs_err": planted["max_abs_err"],
+                               "caught": not planted["ok"]})
         cases.append({"kernel": "flash_fwd_bf16", "case": name, "what": "lse",
                       "rel_err": lse_rel, "ok": lse_rel <= LSE_RTOL})
         out_bound = 2.0 ** -8 * (pv + out32.abs()) + 1e-5 * pv
@@ -571,6 +619,7 @@ def phase_bf16_parity(torch):
               f"{MISMATCH_SHARE} of the elements not bit-equal; lse "
               f"rel err <= {LSE_RTOL}"),
           "cases": cases, "planted_rounding_faults": faults,
+          "relaunch_bit_equal": relaunch,
           "vs_fp32_kernels": vs_fp32,
           "vs_fp32_tolerance": (
               "out: |bf16 - fp32| <= 2^-8 * (P|V| + |out|) + 1e-5 * P|V| "
@@ -583,6 +632,10 @@ def phase_bf16_parity(torch):
     if missed:
         raise AssertionError(f"a planted rounding fault passed the gate: "
                              f"{missed}")
+    unequal = [c for c in relaunch if not all(c["bit_equal"].values())]
+    if unequal:
+        raise AssertionError(f"two launches of a bf16 backward entry on the "
+                             f"same inputs differ: {unequal}")
     bad = [c for c in vs_fp32 if not c["ok"]]
     if bad:
         raise AssertionError(f"bf16 kernels beyond their bound against the "
@@ -2617,10 +2670,16 @@ def _trace_training(torch, exe, main, spec, batch, scope, step_wall):
         raise AssertionError("the profiler saw no device time")
     flash_us = {k: sum(us for name, us in by_name.items() if k in name)
                 for k in FLASH_KERNELS}
+    by_kind = {}
+    for name, us in by_name.items():
+        kind = next((k for k, ms in _TRAIN_KINDS
+                     if any(m in name for m in ms)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
     return {"traced_wall_s": wall, "device_busy_s": busy_s,
             "busy_share": busy_s / step_wall,
             "flash_ms": {k: us / 1e3 for k, us in flash_us.items()},
             "flash_share_of_busy": sum(flash_us.values()) / 1e6 / busy_s,
+            "device_ms_by_kind": by_kind,
             "device_ms_by_kernel": _top_kernels(by_name, 40)}
 
 
@@ -3273,6 +3332,11 @@ _KINDS = (("conv_stats", ("conv_stats", "stats_reduce_kernel")),
                                      "sm80", "dgrad", "wgrad", "fprop")),
           ("reductions", ("reduce_kernel", "Reduce")),
           ("elementwise", ("elementwise", "Elementwise")))
+
+# kernel names of a training step by kind, first match wins: the port's
+# flash kernels, then _KINDS without the conv-epilogue kernels
+_TRAIN_KINDS = (("flash_bwd", ("flash_bwd",)), ("flash_fwd", ("flash_fwd",)),
+                *_KINDS[2:])
 
 
 def _trace_resnet(torch, exe, main, spec, batch, scope, step_wall):
@@ -4528,6 +4592,66 @@ def phase_train_timing(torch, bwd_err, launches, cfg, batch, bf16=False):
     return fwd, rows_out
 
 
+SWEEP_TOKENS = 32 * 256     # B * S held at bench's 32 x 256
+SWEEP_S = (256, 512, 1024, 2048)  # bench's transformer_longctx uses 2048
+
+
+def phase_flash_bwd_sweep(torch):
+    """The bf16 backward kernels against SDPA's backward at bench's head
+    shape (H 8, D 64, causal) with B * S held at 8192 tokens and S from
+    256 to 2048, every key visible up to its causal frontier.  SDPA's
+    backward is timed twice: through a boolean causal mask (the library
+    call of the timing rows) and with ``is_causal=True``.  Bounds as in
+    phase_train_timing."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    rng = torch.Generator(device=dev).manual_seed(SEED + 11)
+    H, D = 8, 64
+    scale = D ** -0.5
+    rows = []
+    for S in SWEEP_S:
+        B = SWEEP_TOKENS // S
+        q, k, v, dout = (torch.randn(B, H, S, D, generator=rng, device=dev)
+                         .to(torch.bfloat16) for _ in range(4))
+        kl = torch.full((B,), S, dtype=torch.int32, device=dev)
+        out, lse = fa.flash_attention_fwd(q, k, v, True, scale, kl)
+        dvec = (dout.float() * out.float()).sum(dim=-1)
+        mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+        sdpa = {}
+        for how, kw in (("mask", {"attn_mask": mask}),
+                        ("is_causal", {"is_causal": True})):
+            qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+            o = F.scaled_dot_product_attention(qg, kg, vg, scale=scale, **kw)
+            sdpa[how] = device_ms(torch, lambda: torch.autograd.grad(
+                o, (qg, kg, vg), dout, retain_graph=True))
+            del o, qg, kg, vg
+        pairs = B * H * S * (S + 1) // 2
+        full, rows_n = B * H * S * D, B * H * S
+        bound = {kernel: 1e3 * max(
+            (2 * (n * full) + 4 * (2 * rows_n + B)) / HBM_BYTES_PER_S,
+            flops * D * pairs / BF16_FLOPS_PER_S)
+            for kernel, n, flops in (("dq", 5, 6), ("dkv", 6, 8))}
+        dq_ms = device_ms(torch, lambda: fa.flash_bwd_dq(
+            q, k, v, dout, lse, dvec, kl, True, scale))
+        dkv_ms = device_ms(torch, lambda: fa.flash_bwd_dkv(
+            q, k, v, dout, lse, dvec, kl, True, scale))
+        rows.append({"S": S, "B": B, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
+                     "sum_ms": dq_ms + dkv_ms,
+                     "dq_bound_ms": bound["dq"], "dkv_bound_ms": bound["dkv"],
+                     "sdpa_bwd_mask_ms": sdpa["mask"],
+                     "sdpa_bwd_is_causal_ms": sdpa["is_causal"]})
+        del q, k, v, dout, out, lse, dvec
+    emit({"phase": "flash_bwd_sweep", "card": card_line(),
+          "dtype": "bfloat16", "H": H, "D": D, "causal": True,
+          "tokens": SWEEP_TOKENS, "method": "CUDA events, median of 30 "
+          "after 5 warm-up calls, queued behind torch.cuda._sleep",
+          "rows": rows})
+    return rows
+
+
 def _conv_stats_work(N, H, W, C, Fo, K, s, p, itemsize=4):
     """(bytes, flops) of conv_stats: x, w read and out written once at
     ``itemsize`` bytes an element, the fp32 sum and sumsq once; 2 flops per
@@ -4712,6 +4836,7 @@ def main() -> int:
     kernels += bwd_rows
     bf16_fwd, bf16_bwd = phase_train_timing(
         torch, bf16_err, amp_launches["keep"], amp_cfg, amp_batch, bf16=True)
+    phase_flash_bwd_sweep(torch)
     for r in [bf16_fwd] + bf16_bwd:
         r["launches_by_path"] = {"training_amp_keep": r["launches"]}
     kernels += [bf16_fwd] + bf16_bwd
