@@ -18,82 +18,103 @@
 //   - lse[r] = m + log(l) for a row with a visible key, and -NEG_INF = +1e30
 //     for a fully masked row (l == 0), as the TPU kernel writes it: the
 //     backward's exp(S - lse) then underflows to exactly 0 on that row.
+// Both kernels walk the keys below the block's last visible one, min(klen,
+// q0 + 64 + Sk - Sq) when causal and klen otherwise: a fully masked tile
+// leaves m, l and the accumulator as they are (corr = 1, p = 0), so walking
+// fewer of them changes nothing.  The ragged edges (S not a multiple of a
+// tile) are masked in the kernel; nothing is padded in device memory.  The
+// two element types run two designs.
 //
-// bf16 rounds where the TPU kernel rounds, and only there: the scores, the
-// running max and sum and the accumulator are fp32 (bf16 operands widen
-// exactly on load, so every product is exact); P = exp(S - m) is rounded to
-// V's dtype before the PV product (flash_attention.py:173) while the row sum
-// l takes the unrounded P; the output rounds once, at the store (:181); lse
-// stays fp32.  For float every rounding is the identity, so both entries are
-// one template.
+// fp32 only: FMA tiles.  One thread block per (b*h, 64-query tile): 256
+// threads as a 16x16 grid, thread (ty, tx) owning query rows ty + 16i and key
+// columns tx + 16j (i, j < 4) of each 64x64 score tile, and output columns
+// tx + 16c of its four rows.  K and V tiles go through shared memory (Q and K
+// rows padded by one float, so the column reads of the score product are free
+// of bank conflicts), P is staged there for the PV product, and the running
+// max m, sum l and the accumulator stay in registers; row reductions are
+// 16-lane shuffles inside a half-warp.  In fp32 the key tile moves nothing
+// but the order of the sums (no value is rounded to a narrower type against
+// the running max), so this kernel keeps its 64-key tile.  Bound on an H100:
+// at the training shape the fp32 flops (4*D per visible query-key pair) over
+// 67 TFLOP/s lead the bytes; in practice instruction issue bounds it (every
+// score and PV term an FMA fed from shared memory).  The products stay exact
+// fp32 FMAs: TF32 tensor cores would round the operands to 10 mantissa bits,
+// beyond the fp32 gate of 1e-4 * max(1, max |plain|).
 //
-// Design.  One thread block per (b*h, 64-query tile): 256 threads as a 16x16
-// grid, thread (ty, tx) owning query rows ty + 16i and key columns tx + 16j
-// (i, j < 4) of each 64x64 score tile, and output columns tx + 16c of its four
-// rows.  A loop over 64-key tiles takes the place of the TPU grid's sequential
-// k dimension: K and V tiles go through shared memory, the running max m, sum
-// l and the fp32 accumulator stay in registers, and row reductions are 16-lane
-// shuffles inside a half-warp.  The loop stops at the tile's last visible key
-// (k_lengths and the causal frontier), so padded and future keys cost nothing.
-// The ragged edges (S not a multiple of 64) are masked in the kernel; nothing
-// is padded in device memory.  Q and K rows are padded by one float in shared
-// memory so the column reads of the score product are free of bank conflicts.
-//
-// What bounds it on an H100.  Its floor is the larger of the bytes (Q, K, V
-// read once, O written once) over the published 3.35 TB/s and the fp32 flops
-// (4*D per visible query-key pair) over the published 67 TFLOP/s.  At serving
-// prompts (S <= 256, D = 64) each key meets at most S queries, so the bytes
-// floor is a little ahead of the flops floor and both are microseconds.  In
-// practice the kernel is bound by instruction issue: every score and every PV
-// term is an fp32 FMA on the CUDA cores fed from shared memory, and the
-// serving shape gives 8*8*2 = 128 blocks, one partial wave on 132 SMs.  The
-// design keeps work off that path: the tile loop ends at the last visible
-// key, the running state stays in registers, and 4x4 register blocking makes
-// each shared-memory load feed four FMAs.  Tensor cores (TF32 or bf16 wgmma)
-// and a TMA pipeline are the later steps; fp32 FMA keeps this first kernel
-// within 1e-4 of the plain version.
+// bf16 only: tensor-core tiles over the TPU kernel's 128-key tile.  The bf16
+// arithmetic of the TPU kernel is what mma.sync.m16n8k16 with bf16 operands
+// and fp32 accumulators computes: exact products summed in fp32.  Its
+// rounding points are kept, and only those: the running max moves once per
+// 128-key tile from key 0, as the TPU kernel's does with its min(128, Sk) key
+// block (flash_attention.py:343, :353-354).  So for each tile S = Q K^T is
+// formed, masked and reduced to its row max over all the tile's keys before
+// any P of the tile exists; then m_new = max(m, tile max), corr =
+// exp(scale (m - m_new)), l = corr * l + sum p over the UNROUNDED p (:172)
+// and acc *= corr, in fp32; P = exp(scale S - scale m_new) rounds to V's
+// dtype as it is packed into the PV product's A fragment, which is the TPU
+// kernel's p.astype(v.dtype) (:173); the output is acc / max(l, 1e-30),
+// rounded once at the store (:181); lse = scale m + log l stays fp32
+// (:185-188).  m is kept on the unscaled scores: rounding is monotone, so
+// scale * max S is exactly the max of the scaled scores the TPU kernel takes.
+// exp(x) is evaluated as exp2f of one FFMA with scale * log2(e) folded in:
+// an fp32 detail that moves no rounding point (on the card the share of
+// outputs not bit-equal to the plain version stays below 1e-3, as expf's).
+// Bound on an H100: at the training shape (B 32, H 8, S 256, D 64, causal)
+// the bytes (Q, K, V read once, O written once) over 3.35 TB/s lead the bf16
+// flops over 989 TFLOP/s by about 3x; in practice the kernel is bound by
+// latency: each warp's tile is a chain of products, a row reduction, the
+// exponentials and more products, and the register file (S alone is 64
+// fp32 a thread) caps the warps an SM holds.  The design:
+//   - one block per (b*h, 64-query tile), 128 threads: four warps, each
+//     owning 16 query rows, their fp32 accumulators (16 x D) and their
+//     running m and l in registers (168 registers a thread at head_dim 64,
+//     three blocks an SM; 253 at 128, two);
+//   - bf16 tiles in shared memory (Q [64], K [128], V [128] rows, each row
+//     padded by 8 elements so that the eight 16-byte row reads of every
+//     ldmatrix fall in distinct banks), filled by cp.async, 16 bytes a thread
+//     a copy; rows past Sq or the block's last visible key are zero-filled
+//     (src-size 0), since garbage bf16 can be Inf or NaN and 0 * NaN would
+//     poison a whole accumulator row.  46 KB a block at head_dim 64, 87 KB
+//     at 128;
+//   - K and V have one buffer each and two barriers a tile: after the first,
+//     which also says that every warp is done with the previous V tile, V
+//     tile it is issued and lands under S and the softmax; after the second,
+//     which also says that every warp is done with K tile it, K tile it + 1
+//     is issued and lands under the PV product;
+//   - S for the warp's 16 rows over the 128 keys is 16 m16n8 accumulator
+//     tiles (64 fp32 a thread), the d sum outermost so that consecutive
+//     products go to different accumulators; Q's A fragments come from
+//     shared memory per 16-deep chunk, K is the untransposed B operand
+//     (ldmatrix); P, packed chunk by chunk as it is formed, is the m16k16 A
+//     fragment of O += P V, V the B operand by ldmatrix.trans; nothing
+//     score-shaped goes through shared memory;
+//   - a warp skips the 16-key chunks past its own last visible key (fully
+//     masked for its rows: p = 0 exactly, and the keys below are finite); a
+//     tile the warp sees whole runs unguarded product loops, and only the
+//     chunks that cross a row's frontier or klen are masked;
+//   - lse near 0.  Where |lse| < max(1, |scale m|) / 2 the relative error of
+//     lse is the scores' rounding magnified by |scale m| / |lse|, and the
+//     tensor cores sum each score in another order than an fp32 matmul (the
+//     plain version's) does, enough to move such an lse by more than 1e-5
+//     relative.  The epilogue sums such a row again
+//     (lse_in_order): each visible score by an fp32 FMA chain in d order, the
+//     exponentials in fp64.  Only lse changes; such rows are rare (a causal
+//     row with few keys and small or negative scores), so it costs little.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-// Element access by type: loads widen four elements to fp32, `round` rounds
-// an fp32 value to the element type and back, `store` narrows for the output.
-template <typename T>
-struct Elem;
+constexpr float NEG_INF = -1e30f;
 
-template <>
-struct Elem<float> {
-  static __device__ __forceinline__ float4 load4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-  }
-  static __device__ __forceinline__ float round(float x) { return x; }
-  static __device__ __forceinline__ float store(float x) { return x; }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);  // 4 x bf16, 8 bytes
-    const float2 a =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-    const float2 b =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-  static __device__ __forceinline__ __nv_bfloat16 store(float x) {
-    return __float2bfloat16_rn(x);
-  }
-};
+// ---------------------------------------------------------------------------
+// fp32: FMA tiles
+// ---------------------------------------------------------------------------
 
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per tile
 constexpr int THREADS = 256;  // 16 x 16
-constexpr float NEG_INF = -1e30f;
 
 template <int D>
 constexpr size_t smem_floats() {
@@ -102,13 +123,13 @@ constexpr size_t smem_floats() {
          (size_t)BQ * (BK + 1);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ k_lengths,
-                 T* __restrict__ o, float* __restrict__ lse, int H, int Sq,
-                 int Sk, float scale, int causal) {
-  using E = Elem<T>;
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v,
+                 const int* __restrict__ k_lengths, float* __restrict__ o,
+                 float* __restrict__ lse, int H, int Sq, int Sk, float scale,
+                 int causal) {
   constexpr int DC = D / 16;  // output columns per thread
   constexpr int D4 = D / 4;
   extern __shared__ float smem[];
@@ -124,9 +145,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = tid & 15;
   const int ty = tid >> 4;
 
-  const T* qb = q + (size_t)bh * Sq * D;
-  const T* kb = k + (size_t)bh * Sk * D;
-  const T* vb = v + (size_t)bh * Sk * D;
+  const float* qb = q + (size_t)bh * Sq * D;
+  const float* kb = k + (size_t)bh * Sk * D;
+  const float* vb = v + (size_t)bh * Sk * D;
 
   const int klen = max(0, min(Sk, k_lengths[b]));
   const int offset = Sk - Sq;  // bottom-right causal alignment
@@ -136,7 +157,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int idx = tid; idx < BQ * D4; idx += THREADS) {
     const int r = idx / D4, d = (idx % D4) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < Sq) x = E::load4(qb + (size_t)(q0 + r) * D + d);
+    if (q0 + r < Sq)
+      x = *reinterpret_cast<const float4*>(qb + (size_t)(q0 + r) * D + d);
     float* dst = q_s + r * (D + 1) + d;
     dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
   }
@@ -156,8 +178,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = idx / D4, d = (idx % D4) * 4;
       float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
       if (k0 + c < klen) {
-        kx = E::load4(kb + (size_t)(k0 + c) * D + d);
-        vx = E::load4(vb + (size_t)(k0 + c) * D + d);
+        kx = *reinterpret_cast<const float4*>(kb + (size_t)(k0 + c) * D + d);
+        vx = *reinterpret_cast<const float4*>(vb + (size_t)(k0 + c) * D + d);
       }
       float* kd = k_s + c * (D + 1) + d;
       kd[0] = kx.x; kd[1] = kx.y; kd[2] = kx.z; kd[3] = kx.w;
@@ -203,8 +225,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);  // masked: exp(<= -5e29) = 0
-        // P rounds to V's dtype for the PV product; l sums it unrounded
-        p_s[(ty + 16 * i) * (BK + 1) + tx + 16 * j] = E::round(p);
+        p_s[(ty + 16 * i) * (BK + 1) + tx + 16 * j] = p;
         rsum += p;
       }
 #pragma unroll
@@ -231,7 +252,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = o + (size_t)bh * Sq * D;
+  float* ob = o + (size_t)bh * Sq * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty + 16 * i;
@@ -239,25 +260,452 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < DC; ++c)
-      ob[(size_t)r * D + tx + 16 * c] = E::store(acc[i][c] / denom);
+      ob[(size_t)r * D + tx + 16 * c] = acc[i][c] / denom;
     if (lse != nullptr && tx == 0)  // m, l are equal across the 16 lanes
       lse[(size_t)bh * Sq + r] = l[i] > 0.f ? m[i] + logf(denom) : -NEG_INF;
   }
 }
 
-template <typename T, int D>
-int launch(const T* q, const T* k, const T* v, const int* k_lengths, T* o,
-           float* lse, int B, int H, int Sq, int Sk, float scale, int causal,
-           cudaStream_t stream) {
-  const size_t smem = smem_floats<D>() * sizeof(float);
+// ---------------------------------------------------------------------------
+// bf16: tensor-core tiles
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int MQ = 64;             // query rows per block
+constexpr int MMA_THREADS = 128;   // four warps, 16 query rows each
+constexpr int KT = 128;            // keys a softmax tile: the TPU key block
+constexpr int CHUNKS = KT / 16;    // 16-key chunks a tile
+constexpr unsigned CHUNK_BYTES = 16 * sizeof(bf16);  // a 16-deep k chunk
+
+template <int D>
+constexpr size_t mma_smem_bytes() {
+  // q [MQ], k [KT], v [KT] rows of D + 8 elements
+  return (size_t)(MQ + 2 * KT) * (D + 8) * sizeof(bf16);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, zero-filled (nothing read) when !live
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory; lanes 8i .. 8i + 7 give the
+// row addresses of matrix i, and register i holds matrix i's (row lane / 4,
+// columns 2 (lane % 4), + 1) — with .trans, (rows 2 (lane % 4), + 1, column
+// lane / 4).
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a b, a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 fp32.  With
+// g = lane / 4 and t = lane % 4: a = {(g, 2t..2t+1), (g + 8, 2t..), (g,
+// 2t + 8..), (g + 8, 2t + 8..)}, b = {(k 2t..2t+1, n g), (k 2t + 8.., n g)},
+// c = {(g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)}.
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
+                                               const unsigned (&a)[4],
+                                               unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (lo, hi) rounded to bf16 (to nearest even), lo in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// The A fragment of a 16 x 16 block from the m16n8 accumulators of its two
+// 8-column halves, rounded to bf16: lo's (row g, columns 2t, 2t + 1) and
+// (row g + 8, ...) are a[0] and a[1], hi's a[2] and a[3]
+__device__ __forceinline__ void pack_a(unsigned (&a)[4], const float (&lo)[4],
+                                       const float (&hi)[4]) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// Issues the 16-byte copies of rows [r0, r0 + ROWS) of a [S, D] bf16 matrix
+// into a [ROWS][D + 8] shared tile; rows at or past `valid` are zero-filled.
+template <int D, int ROWS>
+__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src, int r0,
+                                          int valid, int tid) {
+  constexpr int CPR = D / 8;  // copies a row
+#pragma unroll
+  for (int i = 0; i < ROWS * CPR / MMA_THREADS; ++i) {
+    const int idx = tid + i * MMA_THREADS;
+    const int r = idx / CPR, c = (idx % CPR) * 8;
+    const bool live = r0 + r < valid;
+    cp16(dst + r * (D + 8) + c, src + (live ? (size_t)(r0 + r) * D + c : 0),
+         live);
+  }
+}
+
+// ldmatrix row / column of this lane within a 16 x 16 block.  A operands and
+// .trans B operands: matrices (rows 0-7, cols 0-7), (8-15, 0-7), (0-7, 8-15),
+// (8-15, 8-15).  Untransposed B operands ([n][k] in memory): (n 0-7, k 0-7),
+// (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15), so that registers
+// {0, 1} are the b fragment of n-tile 0 and {2, 3} that of n-tile 1.
+struct Lanes {
+  int a_row, a_col, b_row, b_col;
+  __device__ __forceinline__ explicit Lanes(int lane)
+      : a_row((lane & 7) + ((lane >> 3) & 1) * 8),
+        a_col((lane >> 4) * 8),
+        b_row((lane & 7) + (lane >> 4) * 8),
+        b_col(((lane >> 3) & 1) * 8) {}
+};
+
+// S = Q K^T over the first nc 16-key chunks of a K tile (all of them when
+// FULL), for the warp's 16 query rows whose A fragments start at q_a; the d
+// sum is outermost, so consecutive products go to different accumulators.
+template <int D, bool FULL>
+__device__ __forceinline__ void qk_tile(float (&s)[2 * CHUNKS][4],
+                                        unsigned q_a, const bf16* k_s, int nc,
+                                        const Lanes& ln) {
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    unsigned qa[4];
+    ldsm_x4(qa, q_a + kc * CHUNK_BYTES);
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c) {
+      if (FULL || c < nc) {
+        unsigned kf[4];
+        ldsm_x4(kf, smem_addr(k_s + (c * 16 + ln.b_row) * (D + 8) + kc * 16 +
+                              ln.b_col));
+        mma_bf16_16816(s[2 * c], qa, kf[0], kf[1]);
+        mma_bf16_16816(s[2 * c + 1], qa, kf[2], kf[3]);
+      }
+    }
+  }
+}
+
+// acc += P V over the first nc 16-key chunks of a V tile (all of them when
+// FULL), P given as the bf16 A fragment of each chunk.
+template <int D, bool FULL>
+__device__ __forceinline__ void pv_tile(float (&acc)[D / 8][4],
+                                        const unsigned (&pa)[CHUNKS][4],
+                                        const bf16* v_s, int nc,
+                                        const Lanes& ln) {
+#pragma unroll
+  for (int c = 0; c < CHUNKS; ++c) {
+    if (FULL || c < nc) {
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        unsigned vf[4];
+        ldsm_x4_t(vf, smem_addr(v_s + (c * 16 + ln.a_row) * (D + 8) +
+                                np * 16 + ln.a_col));
+        mma_bf16_16816(acc[2 * np], pa[c], vf[0], vf[1]);
+        mma_bf16_16816(acc[2 * np + 1], pa[c], vf[2], vf[3]);
+      }
+    }
+  }
+}
+
+// q . k over D bf16 elements (16-byte aligned rows), an fp32 FMA chain in
+// d order
+template <int D>
+__device__ __forceinline__ float dot_in_order(const bf16* q, const bf16* k) {
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) {
+    const uint4 qv = *reinterpret_cast<const uint4*>(q + 8 * c);
+    const uint4 kv = *reinterpret_cast<const uint4*>(k + 8 * c);
+    const bf16* qe = reinterpret_cast<const bf16*>(&qv);
+    const bf16* ke = reinterpret_cast<const bf16*>(&kv);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      s = fmaf(__bfloat162float(qe[e]), __bfloat162float(ke[e]), s);
+  }
+  return s;
+}
+
+// The lse of query row qr over its first n_vis keys, for a row whose lse
+// lies near 0: there the relative error of lse is the scores' rounding
+// magnified by |scale m| / |lse|, so each score is summed again by an fp32
+// FMA chain in d order, as the plain version's matmul sums it, and the
+// exponentials are summed in fp64.  The four lanes of the row (mask) split
+// its keys.
+template <int D>
+__device__ __noinline__ float lse_in_order(const bf16* qr, const bf16* kb, int n_vis,
+                              float scale, int t, unsigned mask) {
+  float mx = NEG_INF;
+  for (int j = t; j < n_vis; j += 4)
+    mx = fmaxf(mx, dot_in_order<D>(qr, kb + (size_t)j * D));
+  mx = fmaxf(mx, __shfl_xor_sync(mask, mx, 1));
+  mx = fmaxf(mx, __shfl_xor_sync(mask, mx, 2));
+  const float ms = __fmul_rn(mx, scale);
+  double sum = 0.0;
+  for (int j = t; j < n_vis; j += 4)
+    sum += exp((double)__fsub_rn(
+        __fmul_rn(dot_in_order<D>(qr, kb + (size_t)j * D), scale), ms));
+  sum += __shfl_xor_sync(mask, sum, 1);
+  sum += __shfl_xor_sync(mask, sum, 2);
+  return (float)((double)ms + log(sum));
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS, D == 64 ? 3 : 2)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const int* __restrict__ k_lengths, bf16* __restrict__ o,
+                     float* __restrict__ lse, int H, int Sq, int Sk,
+                     float scale, int causal) {
+  constexpr int LD = D + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [MQ][LD]
+  bf16* k_s = q_s + MQ * LD;                      // [KT][LD]
+  bf16* v_s = k_s + KT * LD;                      // [KT][LD]
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int q0 = blockIdx.x * MQ;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const Lanes ln(lane);
+  // exp(scale x) = exp2(sc x)
+  const float sc = scale * 1.44269504f;
+
+  const bf16* qb = q + (size_t)bh * Sq * D;
+  const bf16* kb = k + (size_t)bh * Sk * D;
+  const bf16* vb = v + (size_t)bh * Sk * D;
+
+  const int klen = max(0, min(Sk, k_lengths[b]));
+  const int offset = Sk - Sq;  // bottom-right causal alignment
+  int k_end = klen;
+  if (causal) k_end = min(k_end, q0 + MQ + offset);
+  const int n_tiles = k_end > 0 ? (k_end + KT - 1) / KT : 0;
+  // this warp's rows row_lo .. row_lo + 15 see every key below w_full and
+  // none at or past w_end
+  const int row_lo = q0 + warp * 16;
+  int w_end = klen, w_full = klen;
+  if (causal) {
+    w_end = min(w_end, row_lo + 16 + offset);
+    w_full = min(w_full, row_lo + 1 + offset);
+  }
+
+  if (n_tiles > 0) {
+    copy_rows<D, MQ>(q_s, qb, q0, Sq, tid);
+    copy_rows<D, KT>(k_s, kb, 0, k_end, tid);
+    cp_commit();
+    copy_rows<D, KT>(v_s, vb, 0, k_end, tid);
+    cp_commit();
+  }
+
+  // this thread's rows of the warp's 16: row0 (g) and row0 + 8 (g + 8)
+  const int row0 = row_lo + g;
+  float m[2] = {NEG_INF / 2, NEG_INF / 2};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const unsigned q_a =
+      smem_addr(q_s + (warp * 16 + ln.a_row) * LD + ln.a_col);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * KT;
+    // 16-key chunks of this tile that hold a key one of the warp's rows sees
+    const int nc = min(CHUNKS, max(0, w_end - k0 + 15) / 16);
+    // K tile it (and Q) have landed, and every warp is done with V tile
+    // it - 1; V tile 0 may still be in flight
+    if (it == 0) {
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    if (it > 0) {
+      copy_rows<D, KT>(v_s, vb, k0, k_end, tid);  // lands under S
+      cp_commit();
+    }
+
+    // S over the live chunks; a tile the warp sees whole takes the
+    // unguarded loop
+    float s[2 * CHUNKS][4];
+#pragma unroll
+    for (int j = 0; j < 2 * CHUNKS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    if (nc == CHUNKS) {
+      qk_tile<D, true>(s, q_a, k_s, nc, ln);
+    } else {
+      qk_tile<D, false>(s, q_a, k_s, nc, ln);
+    }
+
+    // mask the unscaled scores and take the row max over the whole tile.
+    // Element e of n-tile j is query row row0 + 8 (e / 2), key k0 + 8 j +
+    // 2 t + e % 2; a chunk below w_full has no masked entry, and a chunk
+    // past nc none that is visible.
+    float tmax[2][2] = {{NEG_INF, NEG_INF}, {NEG_INF, NEG_INF}};
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c) {
+      if (k0 + 16 * c + 16 > w_full) {
+#pragma unroll
+        for (int j = 2 * c; j < 2 * c + 2; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kj = k0 + 8 * j + 2 * t + (e & 1);
+            const bool ok = kj < klen &&
+                            (!causal || kj <= row0 + 8 * (e >> 1) + offset);
+            if (!ok) s[j][e] = NEG_INF;
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 2 * c; j < 2 * c + 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          tmax[c & 1][e >> 1] = fmaxf(tmax[c & 1][e >> 1], s[j][e]);
+    }
+    // the four lanes t = 0..3 of a row hold its columns.  m is kept
+    // unscaled: with scale > 0, scale * max S is the max of the scaled
+    // scores, as the TPU kernel takes it.
+    float corr[2], msc[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = fmaxf(tmax[0][h], tmax[1][h]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      corr[h] = exp2f((m[h] - m_new) * sc);
+      m[h] = m_new;
+      msc[h] = m_new * sc;
+    }
+    // P = exp(scale S - scale m) in fp32; l sums it unrounded, and P
+    // rounds to V's dtype as each chunk is packed into its A fragment
+    float ls[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    unsigned pa[CHUNKS][4];
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c) {
+#pragma unroll
+      for (int j = 2 * c; j < 2 * c + 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // masked: exp2(<= -5e29 sc) = 0
+          s[j][e] = exp2f(fmaf(s[j][e], sc, -msc[e >> 1]));
+          ls[c & 1][e >> 1] += s[j][e];
+        }
+      }
+      pack_a(pa[c], s[2 * c], s[2 * c + 1]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] = l[h] * corr[h] + (ls[0][h] + ls[1][h]);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][2 * h] *= corr[h];
+        acc[n][2 * h + 1] *= corr[h];
+      }
+    }
+
+    // V tile it has landed, and every warp is done with K tile it
+    cp_wait<0>();
+    __syncthreads();
+    if (it + 1 < n_tiles) {
+      copy_rows<D, KT>(k_s, kb, k0 + KT, k_end, tid);  // lands under PV
+      cp_commit();
+    }
+
+    if (nc == CHUNKS) {
+      pv_tile<D, true>(acc, pa, v_s, nc, ln);
+    } else {
+      pv_tile<D, false>(acc, pa, v_s, nc, ln);
+    }
+  }
+
+  // the row sums over the four lanes; O rounds once, at its store
+  bf16* ob = o + (size_t)bh * Sq * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int r = row0 + 8 * h;
+    if (r >= Sq) continue;
+    const float denom = fmaxf(l[h], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r * D + 8 * n + 2 * t) =
+          __floats2bfloat162_rn(acc[n][2 * h] / denom,
+                                acc[n][2 * h + 1] / denom);
+    if (lse != nullptr && l[h] > 0.f) {
+      const float ms = __fmul_rn(m[h], scale);
+      float lv = ms + logf(denom);
+      if (fabsf(lv) < 0.5f * fmaxf(1.f, fabsf(ms)))  // the row's four lanes
+        lv = lse_in_order<D>(qb + (size_t)r * D, kb,
+                             causal ? min(klen, r + offset + 1) : klen, scale,
+                             t, 0xFu << (lane & ~3));
+      if (t == 0) lse[(size_t)bh * Sq + r] = lv;
+    } else if (lse != nullptr && t == 0) {
+      lse[(size_t)bh * Sq + r] = -NEG_INF;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int q_tiles, int BH, int threads, size_t smem,
+           cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      q, k, v, k_lengths, o, lse, H, Sq, Sk, scale, causal);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) {
+    (void)cudaGetLastError();  // a refused attribute also sets the last error
+    return (int)err;
+  }
+  const dim3 grid(q_tiles, BH);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_d(const float* q, const float* k, const float* v, const int* kl,
+             float* o, float* lse, int B, int H, int Sq, int Sk, float scale,
+             int causal, cudaStream_t st) {
+  return launch(flash_fwd_kernel<D>, (Sq + BQ - 1) / BQ, B * H, THREADS,
+                smem_floats<D>() * sizeof(float), st, q, k, v, kl, o, lse, H,
+                Sq, Sk, scale, causal);
+}
+
+template <int D>
+int launch_d(const bf16* q, const bf16* k, const bf16* v, const int* kl,
+             bf16* o, float* lse, int B, int H, int Sq, int Sk, float scale,
+             int causal, cudaStream_t st) {
+  return launch(flash_fwd_mma_kernel<D>, (Sq + MQ - 1) / MQ, B * H,
+                MMA_THREADS,
+                mma_smem_bytes<D>(), st, q, k, v, kl, o, lse, H, Sq, Sk,
+                scale, causal);
 }
 
 template <typename T>
@@ -268,11 +716,11 @@ int dispatch(const T* q, const T* k, const T* v, const int* k_lengths, T* o,
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch<T, 64>(q, k, v, k_lengths, o, lse, B, H, Sq, Sk, scale,
-                           causal, st);
+      return launch_d<64>(q, k, v, k_lengths, o, lse, B, H, Sq, Sk, scale,
+                          causal, st);
     case 128:
-      return launch<T, 128>(q, k, v, k_lengths, o, lse, B, H, Sq, Sk, scale,
-                            causal, st);
+      return launch_d<128>(q, k, v, k_lengths, o, lse, B, H, Sq, Sk, scale,
+                           causal, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -17,9 +17,11 @@ tensors, all fp32 or all bf16, is differentiable:
 Any other dtype (fp16, fp64) or a mix of dtypes raises TypeError.  In
 bf16 the math is fp32 and rounds where the TPU kernels round
 (``paddle_tpu/kernels/flash_attention.py``): P to V's dtype before the PV
-product, per key tile of the running max (:173); dS to K's dtype before
-dS K (:227), dS^T to Q's before dS^T Q (:267), P^T to dO's before P^T dO
-(:270); each output once (:181, :232, :275-276).  lse and D stay fp32.
+product, against a running max that moves once per 128-key tile from key
+0, the TPU kernel's ``min(128, Sk)`` key block (:343, :353-354, :169-174;
+``BLOCK_K``); dS to K's dtype before dS K (:227), dS^T to Q's before
+dS^T Q (:267), P^T to dO's before P^T dO (:270); each output once (:181,
+:232, :275-276).  lse and D stay fp32.
 The bf16 plain versions (:func:`flash_attention_fwd_bf16_reference`,
 and :func:`flash_attention_bwd_reference`, whose roundings are no-ops in
 fp32) round at the same points, so a kernel and its plain version differ
@@ -58,9 +60,9 @@ __all__ = ["BLOCK_K", "DTYPES", "NEG_INF", "flash_attention",
            "reference_attention", "reset_launches"]
 
 NEG_INF = -1e30
-# the forward kernel's key tile: the running max, and with it the point
-# where bf16 rounds P, moves once per tile
-BLOCK_K = 64
+# the bf16 forward's key tile, the TPU kernel's key block: the running max,
+# and with it the point where bf16 rounds P, moves once per tile
+BLOCK_K = 128
 # element dtype -> C entry suffix
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _HEAD_DIMS = (64, 128)
@@ -130,8 +132,9 @@ def flash_attention_fwd_bf16_reference(q, k, v, causal: bool,
     ``block_k`` with the kernel's online softmax: the running max starts
     at NEG_INF/2, P = exp(S - m) is rounded to V's dtype for the PV
     product while the row sum takes it unrounded, and the output rounds
-    once.  The tile fixes where P rounds: ``block_k`` = BLOCK_K is the
-    CUDA kernel's, 128 (or Sk when smaller) the TPU kernel's."""
+    once.  The tile fixes where P rounds: ``block_k`` = BLOCK_K (128,
+    one tile when Sk is smaller) is the TPU kernel's and the CUDA
+    kernel's; any other value moves the rounding points."""
     qf, kf, vf = q.float(), k.float(), v.float()
     s_all = _masked_scores(qf, kf, causal, scale, k_lengths)
     m = torch.full(s_all.shape[:-1] + (1,), NEG_INF / 2,
