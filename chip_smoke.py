@@ -3179,6 +3179,15 @@ def conv_classes(main, batch):
     return classes
 
 
+# bf16 convs with C % 8 != 0 that the stem's kernel does not take, so the
+# im2col kernel gathers A from x: w's chunks past the six the stem's
+# kernel keeps, two windows and w past its shared memory, and a window
+# past 64 KB
+CONV_PATH_CASES = [(2, 17, 15, 20, 24, 5, 1, 2, False, "relu"),
+                   (1, 2, 300, 37, 16, 3, 1, 1, False, ""),
+                   (1, 3, 600, 37, 16, 3, 1, 1, False, "")]
+
+
 def _conv_inputs(torch, rng, N, H, W, C, Fo, K, dev):
     """Post-ReLU-like x (uniform [0, 1), as the fed image too), the
     layer's N(0, 2 / fan_in) weights, gamma in [0.5, 1.5), beta standard
@@ -3189,6 +3198,21 @@ def _conv_inputs(torch, rng, N, H, W, C, Fo, K, dev):
     gamma = torch.rand(Fo, generator=rng, device=dev) + 0.5
     beta = torch.randn(Fo, generator=rng, device=dev)
     return x, w, gamma, beta
+
+
+def _relaunch_equal(torch, ce, x, w, s, p, first):
+    """Whether conv_stats launched again on the same inputs gives out, sum
+    and sumsq bit-equal to ``first`` (no atomics: the partial sums are
+    reduced in a fixed order)."""
+    again = ce.conv_stats(x, w, s, p)
+    return all(bool(torch.equal(a, b)) for a, b in zip(first, again))
+
+
+def _check_relaunch(relaunch, dtype):
+    bad = [r["case"] for r in relaunch if not r["bit_equal"]]
+    if bad:
+        raise AssertionError(f"{dtype} conv_stats relaunched is not "
+                             f"bit-equal: {bad}")
 
 
 def phase_conv_parity(torch, fluid):
@@ -3204,7 +3228,8 @@ def phase_conv_parity(torch, fluid):
     cases = [k for n in (CONV_PARITY_BATCH, RESNET_BATCH)
              for k in sorted(conv_classes(main, n))]
     cases.append((3, 13, 11, 37, 70, 3, 1, 1, True, "relu"))  # off the tiles
-    out_rows, errs = [], {k: [] for k in CONV_KERNELS}
+    cases += CONV_PATH_CASES
+    out_rows, errs, relaunch = [], {k: [] for k in CONV_KERNELS}, []
 
     def record(kernel, case, what, got, want, scale):
         err = float((got - want).abs().max())
@@ -3219,6 +3244,8 @@ def phase_conv_parity(torch, fluid):
                f"{' relu' if act else ''}"
         x, w, gamma, beta = _conv_inputs(torch, rng, N, H, W, C, Fo, K, dev)
         out, ssum, ssq = ce.conv_stats(x, w, s, p)
+        relaunch.append({"case": name, "bit_equal": _relaunch_equal(
+            torch, ce, x, w, s, p, (out, ssum, ssq))})
         pout, psum, pssq = ce.conv_stats_reference(x, w, s, p)
         del x, w
         count = pout.shape[0] * pout.shape[1] * pout.shape[2]
@@ -3241,10 +3268,11 @@ def phase_conv_parity(torch, fluid):
     emit({"phase": "conv_parity", "tolerance": f"max abs err <= {PARITY_TOL}"
           f" * max(1, max |plain|) (out, y); <= {PARITY_TOL} * max |plain| "
           "(sum, sumsq)", "batches": [CONV_PARITY_BATCH, RESNET_BATCH],
-          "cases": out_rows})
+          "cases": out_rows, "conv_stats_relaunch": relaunch})
     bad = [r for r in out_rows if not r["max_abs_err"] <= r["bound"]]
     if bad:
         raise AssertionError(f"conv-epilogue parity beyond its bound: {bad}")
+    _check_relaunch(relaunch, "fp32")
     return {k: max(v) for k, v in errs.items()}
 
 
@@ -3617,7 +3645,8 @@ def phase_conv_parity_bf16(torch, fluid):
     cases = [k for n in (CONV_PARITY_BATCH, RESNET_BATCH)
              for k in sorted(conv_classes(main, n))]
     cases.append((3, 13, 11, 37, 70, 3, 1, 1, True, "relu"))  # off the tiles
-    rows, faults, vs_fp32 = [], [], []
+    cases += CONV_PATH_CASES
+    rows, faults, vs_fp32, relaunch = [], [], [], []
     errs = {k: [] for k in CONV_KERNELS}
     for N, H, W, C, Fo, K, s, p, res, act in cases:
         name = f"{N}x{H}x{W}x{C}->{Fo} k{K}s{s}p{p}{' +z' if res else ''}" \
@@ -3625,6 +3654,8 @@ def phase_conv_parity_bf16(torch, fluid):
         x, w, gamma, beta = _conv_inputs(torch, rng, N, H, W, C, Fo, K, dev)
         x, w = x.to(bf16), w.to(bf16)
         out, ssum, ssq = ce.conv_stats(x, w, s, p)
+        relaunch.append({"case": name, "bit_equal": _relaunch_equal(
+            torch, ce, x, w, s, p, (out, ssum, ssq))})
         pout, psum, pssq = ce.conv_stats_reference(x, w, s, p)
         M = pout.shape[0] * pout.shape[1] * pout.shape[2]
         gate = _bf16_gate(out, pout)
@@ -3697,6 +3728,7 @@ def phase_conv_parity_bf16(torch, fluid):
               f"max abs err <= {PARITY_TOL} * max |plain|"),
           "batches": [CONV_PARITY_BATCH, RESNET_BATCH], "cases": rows,
           "planted_faults": faults, "vs_fp32_kernels": vs_fp32,
+          "conv_stats_relaunch": relaunch,
           "vs_fp32_tolerance": (
               "|out16 - out32| <= 2^-8 |out32| + 1e-5 max|out32|; |y16 - "
               "y32| <= 1.01 * 2^-8 (|y32| + |inv gamma| |out32|) + 1e-5 "
@@ -3713,6 +3745,7 @@ def phase_conv_parity_bf16(torch, fluid):
     if bad:
         raise AssertionError(f"bf16 conv kernels beyond their bound against "
                              f"the fp32 kernels: {bad}")
+    _check_relaunch(relaunch, "bf16")
     return {k: max(v) for k, v in errs.items()}
 
 
@@ -4735,6 +4768,63 @@ def _tpu_row(key):
     return 5 if key[6] == 1 and key[5] > 1 else 6
 
 
+def phase_conv_stats_sweep(torch, fluid):
+    """conv_stats at every distinct conv shape of ResNet-50 at the main
+    path's batch, in fp32 and bf16: kernel ms, the library call's ms
+    (F.conv2d + torch.var_mean: cuDNN with TF32 off in fp32, bf16 on
+    channels-last tensors), the bound and the program's launches a step;
+    then each column summed over a step, weighted by those launches."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import conv_epilogue as ce
+
+    dev = torch.device("cuda")
+    cl = torch.channels_last
+    rng = torch.Generator(device=dev).manual_seed(SEED + 14)
+    per_step = {}
+    for key, n in conv_classes(build_resnet(fluid)[0], RESNET_BATCH).items():
+        per_step[key[:8]] = per_step.get(key[:8], 0) + n
+    rows = []
+    sums = {d: {"kernel_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+            for d in ("float32", "bfloat16")}
+    for key in sorted(per_step):
+        N, H, W, C, Fo, K, s, p = key
+        x, w, _, _ = _conv_inputs(torch, rng, N, H, W, C, Fo, K, dev)
+        row = {"shape": [N, H, W, C, Fo, K, s, p],
+               "launches_per_step": per_step[key]}
+        for dtype, peak in ((torch.float32, FP32_FLOPS_PER_S),
+                            (torch.bfloat16, BF16_FLOPS_PER_S)):
+            xd, wd = x.to(dtype), w.to(dtype)
+            xn = xd.permute(0, 3, 1, 2)  # NCHW-shaped, channels-last memory
+            wn = wd.permute(3, 2, 0, 1).contiguous(memory_format=cl)
+            nbytes, flops = _conv_stats_work(N, H, W, C, Fo, K, s, p,
+                                             itemsize=dtype.itemsize)
+            name = str(dtype).removeprefix("torch.")
+            r = {"kernel_ms": device_ms(
+                     torch, lambda: ce.conv_stats(xd, wd, s, p)),
+                 "library_ms": device_ms(torch, lambda: torch.var_mean(
+                     F.conv2d(xn, wn, stride=s, padding=p), dim=(0, 2, 3),
+                     unbiased=False)),
+                 "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                       flops / peak),
+                 "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                              >= flops / peak else "operations")}
+            for k in sums[name]:
+                sums[name][k] += per_step[key] * r[k]
+            row[name] = r
+            del xd, wd, xn, wn
+        rows.append(row)
+        del x, w
+    torch.cuda.empty_cache()
+    emit({"phase": "conv_stats_sweep", "card": card_line(),
+          "batch": RESNET_BATCH, "method": "CUDA events, median of 30 "
+          "after 5 warm-up calls, queued behind torch.cuda._sleep",
+          "library_call": "F.conv2d + torch.var_mean (fp32: TF32 off; "
+                          "bf16: channels-last)",
+          "rows": rows, "per_step_weighted_ms": sums})
+    return sums
+
+
 def phase_conv_timing(torch, conv_err, launches, by_shape, trace):
     """conv_stats at kernel row 5's shape (3x3/1 pad 1 [256, 56, 56, 64]
     -> 64) and row 6's (1x1/1 [256, 56, 56, 64] -> 256, the 7x7/2 pad 3
@@ -4911,6 +5001,7 @@ def main() -> int:
                                  trace)
     kernels += phase_conv_timing_bf16(torch, conv_bf16_err,
                                       resnet_amp_launches)
+    phase_conv_stats_sweep(torch, fluid)
     kernels += phase_analysis_timing(torch, np, analysis_err,
                                      analysis_launches)
     # flash_fwd runs on every path and paged_decode on both fp32 serving

@@ -67,7 +67,10 @@ __all__ = ["ConvBnAct", "bn_epilogue", "bn_epilogue_reference",
            "conv_stats", "conv_stats_reference", "reset_launches"]
 
 _ACTS = ("relu", "", None)
-_TILE_M = 64  # output rows per conv block: the partial-sum buffers' height
+# the partial-sum buffers' height is ceil(M / _TILE_M): _TILE_M must not
+# exceed any conv_stats kernel's row tile (TILE_M = 128 in
+# csrc/conv_epilogue.cu), or a kernel would write past the scratch
+_TILE_M = 128
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _HALF = (torch.bfloat16, torch.float16)
 
