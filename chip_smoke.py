@@ -11,7 +11,9 @@ prints no final result line):
 1. The card's name and power limit (``nvidia-smi``), then the build of
    every CUDA kernel from ``paddle_tpu_torch/kernels/csrc`` (one ``nvcc``
    per source, all started together) with its seconds and ptxas report
-   (each kernel instantiation's name, spills and registers).
+   (each kernel instantiation's name, spills and registers); a kernel of
+   flash_bwd.cu or corpus.cu that spills fails the phase (the others'
+   spills are listed).
 2. Kernel parity, fp32 with TF32 off: ``flash_fwd`` against
    ``reference_attention`` and ``paged_decode`` against
    ``paged_decode_reference`` at the serving path's shapes (max abs error
@@ -19,7 +21,11 @@ prints no final result line):
    ``flash_bwd_dkv`` against ``flash_attention_fwd_reference`` /
    ``flash_attention_bwd_reference`` at the training shape and the edges
    (head_dim 64 and 128, causal and not, ragged lengths with a 0 row, S
-   off the tile, Sk > Sq), max abs error <= 1e-4 * max(1, max |plain|).
+   off the tile, Sk > Sq), max abs error <= 1e-4 * max(1, max |plain|);
+   each backward entry launched again on the same inputs gives bit-equal
+   outputs, and at the training shape one TF32 product a multiply (the
+   fp32 kernels split every operand for three; the plain model on the
+   same inputs) must fail that gate on dQ, dK and dV.
    The paged kernel's verify and int8 variants against
    ``paged_verify_reference`` / ``paged_decode_reference`` on pages and
    scales the pool's own ``write_kv`` produced: verify at the serving
@@ -224,7 +230,8 @@ prints no final result line):
    ``corpus_add`` bit-equal to its plain version on [512, 128] + a [512]
    broadcast, [513, 128] (off the thread block) and [7, 129] (the scalar
    path); ``corpus_scale`` over [2, 4096, 4096] at tile_rows 8 (128 KiB a
-   block) and 12 (192 KiB, a ragged last tile).  ``corpus_smem_optin``
+   block) and 12 (192 KiB, a ragged last tile), and over [3, 1000, 1001]
+   at tile_rows 7 (ragged tiles, the element path), bit-equal to x * 2.  ``corpus_smem_optin``
    must equal the linter's budget, 232448.  Then, the counters zeroed: both
    corpus programs captured (no launch) and linted, ``broadcast_lse``
    exactly broadcast-operand at 262144 bytes, ``vmem_overflow`` exactly
@@ -251,7 +258,10 @@ prints no final result line):
    context; SDPA with a boolean mask over the gathered K/V) and row 4a
    over the same context unevicted; the bf16 entries of rows 1-3 at the
    training shape (bound over the dense bf16 tensor peak, 989 TFLOP/s;
-   SDPA in bf16); the bf16 entries of conv_stats (row 6: in JAX every bf16
+   SDPA in bf16); the fp32 backward's bound as three TF32 products a
+   multiply over the dense TF32 peak, 494.7 TFLOP/s, with the FMA bound
+   beside it, and the fp32 pair again at the encoder's non-causal shape
+   (k_lengths from the batch's source rows) beside SDPA's backward; the bf16 entries of conv_stats (row 6: in JAX every bf16
    conv takes it) at rows 5 and 6's shapes and bn_epilogue at row 7's,
    bytes at 2-byte activations, flops over the bf16 peak, the library
    calls in bf16 on channels-last tensors; the bf16 entries of rows 4a
@@ -260,12 +270,12 @@ prints no final result line):
    bf16;
    rows 8 and 9 at the corpus shapes (corpus_add on [512, 128], library
    call x + lse[:, None]; corpus_scale over [2, 4096, 4096] at tile_rows
-   8, library call x * 2), bounds from bytes.  ``flash_fwd_sweep``: the
+   8 and 14, library call x * 2), bounds from bytes.  ``flash_fwd_sweep``: the
    bf16 forward with lse and SDPA's forward (boolean mask and is_causal)
    at H 8, D 64, causal, B * S = 8192 and S 256 to 2048.
-   ``flash_bwd_sweep``: the bf16 backward kernels and SDPA's backward
-   (boolean mask and is_causal) at the same shapes.  Both sweeps print
-   the card's name and power limit.
+   ``flash_bwd_sweep``: the bf16 backward kernels, then the fp32 ones,
+   and SDPA's backward in the same dtype (boolean mask and is_causal) at
+   the same shapes.  Both sweeps print the card's name and power limit.
 
 Each phase prints one JSON line; the line before the last is the
 ``kernels`` summary and the last line is exactly
@@ -294,6 +304,10 @@ MARGIN_TOL = 1e-3      # top-2 logit margin below which a greedy tie may flip
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
+TF32_FLOPS_PER_S = 494.7e12  # dense tf32 tensor-core peak
+# the fp32 backward kernels' products are three TF32 products a multiply
+# (big·big, big·small, small·big of the split operands)
+TF32_PASSES = 3
 SEED = 0
 CFG = dict(vocab_size=10000, d_model=512, n_head=8, n_layer=6, d_inner=2048,
            max_length=256)
@@ -315,6 +329,11 @@ def card_line() -> str:
 
 # -- phase 1 --------------------------------------------------------------
 
+# sources whose kernels must build with no register spills (the others'
+# spills are reported)
+NO_SPILL_SOURCES = ("flash_bwd", "corpus")
+
+
 def phase_build():
     from paddle_tpu_torch.kernels import _build
 
@@ -327,9 +346,21 @@ def phase_build():
                     if "entry function" in ln or "registers" in ln
                     or "spill" in ln]
              for name, r in report.items()}
+    spills = {}  # source -> [(kernel, its spill line)] where it spills
+    for name, lines in ptxas.items():
+        kernel = None
+        for ln in lines:
+            if "entry function" in ln:
+                kernel = ln.split("'")[1]
+            elif ("spill" in ln and "0 bytes spill stores, 0 bytes spill "
+                  "loads" not in ln):
+                spills.setdefault(name, []).append((kernel, ln))
     emit({"phase": "build", "seconds": seconds,
           "per_source_s": {n: r["seconds"] for n, r in report.items()},
-          "ptxas": ptxas})
+          "ptxas": ptxas, "spills": spills})
+    bad = {n: v for n, v in spills.items() if n in NO_SPILL_SOURCES}
+    if bad:
+        raise AssertionError(f"kernels that must not spill do: {bad}")
 
 
 # -- phase 2 --------------------------------------------------------------
@@ -421,21 +452,60 @@ BWD_CASES = [
 ]
 
 
+def _tf32(torch, x):
+    """x rounded to tf32 as cvt.rna.tf32.f32 rounds it: to nearest, ties
+    away from zero, at 10 mantissa bits (on the int32 view)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000)
+            & -0x2000).view(torch.float32)
+
+
+def _one_tf32_pass_bwd(torch, fa, q, k, v, k_lengths, out, lse, dout,
+                       causal, scale):
+    """The fp32 backward with one TF32 product a multiply (each operand
+    rounded to tf32 once, no small terms): the planted fault that the
+    kernels' split products exist to avoid.  Otherwise
+    flash_attention_bwd_reference's arithmetic, in plain PyTorch with
+    TF32 off, so the tensor cores' own rounding does not enter."""
+    def mm(a, b):
+        return torch.matmul(_tf32(torch, a), _tf32(torch, b))
+
+    s = mm(q, k.transpose(-1, -2)) * scale
+    vis = fa._visible(q.shape[0], s.shape[-2], s.shape[-1], causal,
+                      k_lengths, q.device)
+    p = torch.where(vis, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    dvec = (dout * out).sum(dim=-1, keepdim=True)
+    ds = p * (mm(dout, v.transpose(-1, -2)) - dvec) * scale
+    return (mm(ds, k), mm(ds.transpose(-1, -2), q),
+            mm(p.transpose(-1, -2), dout))
+
+
+# the BWD_CASES at the training shape, where one TF32 pass must fail the gate
+ONE_PASS_REQUIRED = ("train_causal", "train_noncausal")
+
+
 def phase_bwd_parity(torch):
     """flash_fwd's lse output and the two backward kernels against their
     plain versions.  The bound is relative to the plain values' scale:
     max abs error <= PARITY_TOL * max(1, max |plain|).  A fully masked row
-    must give lse = +1e30 exactly, and dQ = 0."""
+    must give lse = +1e30 exactly, and dQ = 0.  Each backward entry
+    launched again on the same inputs must give bit-equal outputs, and at
+    the training shape the planted fault, one TF32 product a multiply
+    (_one_tf32_pass_bwd, on the same inputs), must fail the gate on dQ, dK
+    and dV."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
     dev = torch.device("cuda")
     rng = torch.Generator(device=dev).manual_seed(SEED + 2)
     cases, errs = [], {"flash_fwd": [], "flash_bwd_dq": [],
                        "flash_bwd_dkv": []}
+    relaunch, one_pass = {}, []
+
+    def gate(got, want):
+        err = float((got - want).abs().max())
+        return err, PARITY_TOL * max(1.0, float(want.abs().max()))
 
     def record(kernel, name, got, want):
-        err = float((got - want).abs().max())
-        bound = PARITY_TOL * max(1.0, float(want.abs().max()))
+        err, bound = gate(got, want)
         cases.append({"kernel": kernel, "case": name, "max_abs_err": err,
                       "bound": bound})
         errs[kernel].append(err)
@@ -466,11 +536,35 @@ def phase_bwd_parity(torch):
         record("flash_bwd_dq", name, dq, want[0])
         record("flash_bwd_dkv", name + "/dk", dk, want[1])
         record("flash_bwd_dkv", name + "/dv", dv, want[2])
+        dvec = (dout.float() * out.float()).sum(dim=-1)
+        dq2 = fa.flash_bwd_dq(q, k, v, dout, lse, dvec, kl, causal, scale)
+        dk2, dv2 = fa.flash_bwd_dkv(q, k, v, dout, lse, dvec, kl, causal,
+                                    scale)
+        relaunch[name] = [bool(torch.equal(a, b)) for a, b in
+                          ((dq, dq2), (dk, dk2), (dv, dv2))]
+        if name in ONE_PASS_REQUIRED:
+            fault = _one_tf32_pass_bwd(torch, fa, q, k, v, kl, want_out,
+                                       want_lse, dout, causal, scale)
+            for grad, got, w in zip(("dq", "dk", "dv"), fault, want):
+                err, bound = gate(got, w)
+                one_pass.append({"case": name, "grad": grad,
+                                 "max_abs_err": err, "bound": bound})
+        del out, lse, dq, dk, dv, dq2, dk2, dv2
     emit({"phase": "bwd_parity", "tolerance": "max abs err <= "
-          f"{PARITY_TOL} * max(1, max |plain|)", "cases": cases})
+          f"{PARITY_TOL} * max(1, max |plain|)", "cases": cases,
+          "relaunch_bit_equal": relaunch,
+          "one_tf32_pass_fault": one_pass})
     bad = [c for c in cases if not c["max_abs_err"] <= c["bound"]]
     if bad:
         raise AssertionError(f"backward parity beyond its bound: {bad}")
+    unequal = {n: r for n, r in relaunch.items() if not all(r)}
+    if unequal:
+        raise AssertionError(f"fp32 backward relaunch not bit-equal (dq, dk, "
+                             f"dv): {unequal}")
+    passed = [f for f in one_pass if f["max_abs_err"] <= f["bound"]]
+    if passed or not one_pass:
+        raise AssertionError(f"one TF32 pass a product passed the gate: "
+                             f"{passed}")
     return {k: max(v) for k, v in errs.items()}
 
 
@@ -4140,6 +4234,9 @@ SCALE_SHAPE = (2, 4096, 4096)
 SCALE_TILES = (8, 12)        # 128 KiB; 192 KiB with a ragged last tile
 BOUNDARY_TILES = (14, 15)    # 229376 and 245760 bytes a block
 TIMED_TILE = 8
+MAIN_PATH_TILE = 14          # the main path's launch, also timed
+# rows not a multiple of tile_rows and cols % 4 != 0: the element path
+RAGGED_SCALE = ((3, 1000, 1001), 7)
 
 
 def _refusal(_build, run, what):
@@ -4219,6 +4316,14 @@ def phase_analysis(torch, np):
         parity.append({"kernel": "corpus_scale", "shape": list(SCALE_SHAPE),
                        "tile_rows": tile, "smem_bytes":
                        ck.corpus_scale_smem_bytes(x.shape, x.dtype, tile)})
+    shape, tile = RAGGED_SCALE
+    xr = normal(*shape)
+    bit_equal(ck.corpus_scale(xr, tile), ck.corpus_scale_reference(xr),
+              f"corpus_scale {list(shape)} tile_rows {tile}")
+    parity.append({"kernel": "corpus_scale", "shape": list(shape),
+                   "tile_rows": tile, "smem_bytes":
+                   ck.corpus_scale_smem_bytes(shape, xr.dtype, tile)})
+    del xr
     optin = ck.smem_per_block_optin()
     if optin != analysis.H100_SMEM_PER_BLOCK_OPTIN:
         raise AssertionError(
@@ -4311,9 +4416,10 @@ def phase_analysis(torch, np):
 def phase_analysis_timing(torch, np, errs, launches):
     """Row 8 (corpus_add) at the corpus shape, x [512, 128] + a materialised
     [512] broadcast, and row 9 (corpus_scale) over [2, 4096, 4096] at
-    tile_rows 8.  Bounds: each input read and the output written once over
-    3.35 TB/s.  Library calls: x + lse[:, None] by torch broadcasting (it
-    reads the [512] vector, not the materialised operand), and x * 2."""
+    tile_rows 8, and again at 14, the main path's launch.  Bounds: each
+    input read and the output written once over 3.35 TB/s.  Library calls:
+    x + lse[:, None] by torch broadcasting (it reads the [512] vector, not
+    the materialised operand), and x * 2."""
     from paddle_tpu_torch.kernels import corpus as ck
 
     dev = torch.device("cuda")
@@ -4345,6 +4451,13 @@ def phase_analysis_timing(torch, np, errs, launches):
          "smem_bytes": ck.corpus_scale_smem_bytes(xs.shape, xs.dtype,
                                                   TIMED_TILE),
          "library_call": "x * 2"})
+    scale["at_tile_rows_14"] = {
+        "tile_rows": MAIN_PATH_TILE, "grid": list(ck.corpus_scale_grid(
+            SCALE_SHAPE, MAIN_PATH_TILE,
+            torch.cuda.get_device_properties(dev).multi_processor_count)),
+        "ms": device_ms(torch, lambda: ck.corpus_scale(xs, MAIN_PATH_TILE)),
+        "bound_ms": scale["bound_ms"],
+        "library_ms": device_ms(torch, lambda: xs * 2)}
     rows = [add, scale]
     emit({"phase": "analysis_timing", "method": "CUDA events, median of 30 "
           "after 5 warm-up calls, queued behind torch.cuda._sleep",
@@ -4560,10 +4673,16 @@ def phase_train_timing(torch, bwd_err, launches, cfg, batch, bf16=False):
     the element size; lse, D and the lengths in 4 bytes) and each output
     written once, and the flops of the visible (query, key) pairs: 4*D
     forward, 6*D dq (S, dP, dQ), 8*D dkv (S, dP, dK, dV), over the fp32
-    peak or, for bf16, the dense bf16 tensor peak.  The plain time of
-    both backward rows is flash_attention_bwd_reference, which computes
-    dQ, dK and dV together; so is the library call, SDPA's backward
-    through a boolean mask (in the same dtype)."""
+    peak (the forward) or, for bf16, the dense bf16 tensor peak; the fp32
+    backward's as TF32_PASSES products over the dense TF32 tensor peak,
+    with the FMA bound (the flops once over the fp32 peak) beside it as
+    ``fma_bound_ms``.  The plain time of both backward rows is
+    flash_attention_bwd_reference, which computes dQ, dK and dV together;
+    so is the library call, SDPA's backward through a boolean mask (in the
+    same dtype).  In fp32 the pair is timed again at the encoder's shape
+    (non-causal, k_lengths from the batch's source rows: the encoder
+    self-attention and the cross-attention, 12 of a step's 18 launches of
+    each backward kernel), beside SDPA's backward there."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -4576,6 +4695,8 @@ def phase_train_timing(torch, bwd_err, launches, cfg, batch, bf16=False):
     dtype = torch.bfloat16 if bf16 else torch.float32
     suffix, e = ("_bf16", 2) if bf16 else ("", 4)
     peak = BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S
+    bwd_peak, passes = ((BF16_FLOPS_PER_S, 1) if bf16
+                        else (TF32_FLOPS_PER_S, TF32_PASSES))
     fwd_plain = (fa.flash_attention_fwd_bf16_reference if bf16
                  else fa.flash_attention_fwd_reference)
     lens = [int(n) for n in (batch["trg_word"] != cfg.pad_idx).sum(axis=1)]
@@ -4607,7 +4728,7 @@ def phase_train_timing(torch, bwd_err, launches, cfg, batch, bf16=False):
              device_ms(torch, lambda: fa.flash_bwd_dq(
                  q, k, v, dout, lse, dvec, kl, True, scale)),
              plain_bwd, e * (3 * full + 2 * kv_rows) + 4 * (2 * rows + B),
-             6 * D * pairs, sdpa_bwd, shape, peak),
+             passes * 6 * D * pairs, sdpa_bwd, shape, bwd_peak),
         _row("flash_bwd_dkv" + suffix,
              "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
              "paddle_tpu/kernels/flash_attention.py:409",
@@ -4615,7 +4736,38 @@ def phase_train_timing(torch, bwd_err, launches, cfg, batch, bf16=False):
              device_ms(torch, lambda: fa.flash_bwd_dkv(
                  q, k, v, dout, lse, dvec, kl, True, scale)),
              plain_bwd, e * (4 * full + 2 * kv_rows) + 4 * (2 * rows + B),
-             8 * D * pairs, sdpa_bwd, shape, peak)]
+             passes * 8 * D * pairs, sdpa_bwd, shape, bwd_peak)]
+    encoder = None
+    if not bf16:
+        for r, flops in zip(rows_out, (6 * D * pairs, 8 * D * pairs)):
+            r["fma_bound_ms"] = 1e3 * flops / FP32_FLOPS_PER_S
+        src = [int(n) for n in (batch["src_word"] != cfg.pad_idx).sum(axis=1)]
+        kl_src = torch.tensor(src, dtype=torch.int32, device=dev)
+        enc_pairs = H * S * sum(src)
+        enc_kv = H * D * sum(src)
+        out_e, lse_e = fa.flash_attention_fwd(q, k, v, False, scale, kl_src)
+        dvec_e = (dout * out_e).sum(dim=-1)
+        mask_e = (pos[None, :] < kl_src[:, None].long())[:, None, None, :]
+        qe, ke, ve = (x.clone().requires_grad_() for x in (q, k, v))
+        sdpa_e = F.scaled_dot_product_attention(qe, ke, ve, attn_mask=mask_e,
+                                                scale=scale)
+        encoder = {"causal": False, "k_lengths": src,
+                   "library_ms": device_ms(torch, lambda: torch.autograd.grad(
+                       sdpa_e, (qe, ke, ve), dout, retain_graph=True))}
+        for name, fn, n_full, flops in (
+                ("flash_bwd_dq", fa.flash_bwd_dq, 3, 6),
+                ("flash_bwd_dkv", fa.flash_bwd_dkv, 4, 8)):
+            t_bytes = 1e3 * (4 * (n_full * full + 2 * enc_kv)
+                             + 4 * (2 * rows + B)) / HBM_BYTES_PER_S
+            t_ops = 1e3 * TF32_PASSES * flops * D * enc_pairs / bwd_peak
+            encoder[name] = {
+                "ms": device_ms(torch, lambda: fn(
+                    q, k, v, dout, lse_e, dvec_e, kl_src, False, scale)),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "fma_bound_ms": 1e3 * flops * D * enc_pairs
+                / FP32_FLOPS_PER_S}
+        del qe, ke, ve, sdpa_e, out_e, lse_e, dvec_e
     fwd = _row("flash_fwd" + suffix,
                "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
                "paddle_tpu/kernels/flash_attention.py:317",
@@ -4637,10 +4789,16 @@ def phase_train_timing(torch, bwd_err, launches, cfg, batch, bf16=False):
           "flash_fwd_with_lse": {k: fwd[k] for k in (
               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
           "rows": [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
-                                      "bound_by", "library_ms")}
-                   for r in rows_out]})
+                                      "bound_by", "library_ms",
+                                      "fma_bound_ms") if k in r}
+                   for r in rows_out],
+          "encoder_noncausal": encoder})
     for r in rows_out + [fwd]:
         r.pop("shape")
+    if encoder:
+        for r in rows_out:
+            r["encoder_noncausal"] = dict(encoder[r["name"]],
+                                          library_ms=encoder["library_ms"])
     return fwd, rows_out
 
 
@@ -4649,12 +4807,14 @@ SWEEP_S = (256, 512, 1024, 2048)  # bench's transformer_longctx uses 2048
 
 
 def phase_flash_bwd_sweep(torch):
-    """The bf16 backward kernels against SDPA's backward at bench's head
-    shape (H 8, D 64, causal) with B * S held at 8192 tokens and S from
-    256 to 2048, every key visible up to its causal frontier.  SDPA's
-    backward is timed twice: through a boolean causal mask (the library
-    call of the timing rows) and with ``is_causal=True``.  Bounds as in
-    phase_train_timing."""
+    """The backward kernels against SDPA's backward at bench's head shape
+    (H 8, D 64, causal) with B * S held at 8192 tokens and S from 256 to
+    2048, every key visible up to its causal frontier: the bf16 entries on
+    bf16 tensors, then the fp32 entries on fp32 tensors (SDPA in the same
+    dtype, TF32 off).  SDPA's backward is timed twice: through a boolean
+    causal mask (the library call of the timing rows) and with
+    ``is_causal=True``.  Bounds as in phase_train_timing (fp32: bytes at 4
+    bytes an element, TF32_PASSES products over the dense TF32 peak)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -4663,45 +4823,54 @@ def phase_flash_bwd_sweep(torch):
     rng = torch.Generator(device=dev).manual_seed(SEED + 11)
     H, D = 8, 64
     scale = D ** -0.5
-    rows = []
-    for S in SWEEP_S:
-        B = SWEEP_TOKENS // S
-        q, k, v, dout = (torch.randn(B, H, S, D, generator=rng, device=dev)
-                         .to(torch.bfloat16) for _ in range(4))
-        kl = torch.full((B,), S, dtype=torch.int32, device=dev)
-        out, lse = fa.flash_attention_fwd(q, k, v, True, scale, kl)
-        dvec = (dout.float() * out.float()).sum(dim=-1)
-        mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
-        sdpa = {}
-        for how, kw in (("mask", {"attn_mask": mask}),
-                        ("is_causal", {"is_causal": True})):
-            qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
-            o = F.scaled_dot_product_attention(qg, kg, vg, scale=scale, **kw)
-            sdpa[how] = device_ms(torch, lambda: torch.autograd.grad(
-                o, (qg, kg, vg), dout, retain_graph=True))
-            del o, qg, kg, vg
-        pairs = B * H * S * (S + 1) // 2
-        full, rows_n = B * H * S * D, B * H * S
-        bound = {kernel: 1e3 * max(
-            (2 * (n * full) + 4 * (2 * rows_n + B)) / HBM_BYTES_PER_S,
-            flops * D * pairs / BF16_FLOPS_PER_S)
-            for kernel, n, flops in (("dq", 5, 6), ("dkv", 6, 8))}
-        dq_ms = device_ms(torch, lambda: fa.flash_bwd_dq(
-            q, k, v, dout, lse, dvec, kl, True, scale))
-        dkv_ms = device_ms(torch, lambda: fa.flash_bwd_dkv(
-            q, k, v, dout, lse, dvec, kl, True, scale))
-        rows.append({"S": S, "B": B, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
-                     "sum_ms": dq_ms + dkv_ms,
-                     "dq_bound_ms": bound["dq"], "dkv_bound_ms": bound["dkv"],
-                     "sdpa_bwd_mask_ms": sdpa["mask"],
-                     "sdpa_bwd_is_causal_ms": sdpa["is_causal"]})
-        del q, k, v, dout, out, lse, dvec
-    emit({"phase": "flash_bwd_sweep", "card": card_line(),
-          "dtype": "bfloat16", "H": H, "D": D, "causal": True,
-          "tokens": SWEEP_TOKENS, "method": "CUDA events, median of 30 "
-          "after 5 warm-up calls, queued behind torch.cuda._sleep",
-          "rows": rows})
-    return rows
+    out_rows = {}
+    for dtype, e, peak, passes in (
+            (torch.bfloat16, 2, BF16_FLOPS_PER_S, 1),
+            (torch.float32, 4, TF32_FLOPS_PER_S, TF32_PASSES)):
+        rows = []
+        for S in SWEEP_S:
+            B = SWEEP_TOKENS // S
+            q, k, v, dout = (torch.randn(B, H, S, D, generator=rng,
+                                         device=dev).to(dtype)
+                             for _ in range(4))
+            kl = torch.full((B,), S, dtype=torch.int32, device=dev)
+            out, lse = fa.flash_attention_fwd(q, k, v, True, scale, kl)
+            dvec = (dout.float() * out.float()).sum(dim=-1)
+            mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+            sdpa = {}
+            for how, kw in (("mask", {"attn_mask": mask}),
+                            ("is_causal", {"is_causal": True})):
+                qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+                o = F.scaled_dot_product_attention(qg, kg, vg, scale=scale,
+                                                   **kw)
+                sdpa[how] = device_ms(torch, lambda: torch.autograd.grad(
+                    o, (qg, kg, vg), dout, retain_graph=True))
+                del o, qg, kg, vg
+            pairs = B * H * S * (S + 1) // 2
+            full, rows_n = B * H * S * D, B * H * S
+            bound = {kernel: 1e3 * max(
+                (e * (n * full) + 4 * (2 * rows_n + B)) / HBM_BYTES_PER_S,
+                passes * flops * D * pairs / peak)
+                for kernel, n, flops in (("dq", 5, 6), ("dkv", 6, 8))}
+            dq_ms = device_ms(torch, lambda: fa.flash_bwd_dq(
+                q, k, v, dout, lse, dvec, kl, True, scale))
+            dkv_ms = device_ms(torch, lambda: fa.flash_bwd_dkv(
+                q, k, v, dout, lse, dvec, kl, True, scale))
+            rows.append({"S": S, "B": B, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
+                         "sum_ms": dq_ms + dkv_ms,
+                         "dq_bound_ms": bound["dq"],
+                         "dkv_bound_ms": bound["dkv"],
+                         "sdpa_bwd_mask_ms": sdpa["mask"],
+                         "sdpa_bwd_is_causal_ms": sdpa["is_causal"]})
+            del q, k, v, dout, out, lse, dvec
+        name = str(dtype).removeprefix("torch.")
+        emit({"phase": "flash_bwd_sweep", "card": card_line(),
+              "dtype": name, "H": H, "D": D, "causal": True,
+              "tokens": SWEEP_TOKENS, "method": "CUDA events, median of 30 "
+              "after 5 warm-up calls, queued behind torch.cuda._sleep",
+              "rows": rows})
+        out_rows[name] = rows
+    return out_rows
 
 
 def phase_flash_fwd_sweep(torch):

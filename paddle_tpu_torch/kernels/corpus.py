@@ -4,9 +4,10 @@ the pallas_calls in paddle_tpu/analysis/corpus.py), as custom ops.
 - ``corpus_add(x, b)`` is out = x + b over two fp32 tensors of one shape
   (row 8: ``_broadcast_lse_operand``'s ``_add_kernel``, corpus.py:37);
 - ``corpus_scale(x, tile_rows)`` is out = 2 * x over fp32 x [n_blocks,
-  rows, cols], staged through shared memory a tile of ``tile_rows`` rows
-  at a time (row 9: ``_vmem_overflow``'s ``_scale_kernel``, corpus.py:177,
-  whose BlockSpec holds a whole [4096, 4096] block in VMEM).
+  rows, cols] through a shared-memory buffer of ``tile_rows`` rows, at
+  most one block an SM, each walking its tiles (row 9:
+  ``_vmem_overflow``'s ``_scale_kernel``, corpus.py:177, whose BlockSpec
+  holds a whole [4096, 4096] block in VMEM).
 
 Both are registered with ``torch.library.custom_op`` as
 ``paddle_tpu_torch::corpus_add`` and ``paddle_tpu_torch::corpus_scale``,
@@ -43,12 +44,13 @@ import torch
 
 from . import _build
 
-__all__ = ["corpus_add", "corpus_add_grid", "corpus_add_reference",
-           "corpus_scale", "corpus_scale_grid", "corpus_scale_reference",
-           "corpus_scale_smem_bytes", "reset_launches",
-           "smem_per_block_optin"]
+__all__ = ["H100_SMS", "corpus_add", "corpus_add_grid",
+           "corpus_add_reference", "corpus_scale", "corpus_scale_grid",
+           "corpus_scale_reference", "corpus_scale_smem_bytes",
+           "reset_launches", "smem_per_block_optin"]
 
 ADD_THREADS = 256     # csrc/corpus.cu ADD_THREADS
+H100_SMS = 132        # streaming multiprocessors of an H100 SXM
 
 
 # -- sizing, shared with the linter's pricing ---------------------------------
@@ -61,10 +63,17 @@ def corpus_add_grid(numel: int):
     return (-(-units // ADD_THREADS),)
 
 
-def corpus_scale_grid(shape: Sequence[int], tile_rows: int):
-    """(n_blocks, ceil(rows / tile_rows)): one CUDA block a tile."""
+def corpus_scale_grid(shape: Sequence[int], tile_rows: int,
+                      sms: int = H100_SMS):
+    """(n_blocks, grid_y): grid_y blocks a matrix, as many as its tiles
+    (ceil(rows / tile_rows)) but no more than sms // n_blocks (at least
+    one), so the grid holds at most one block an SM unless the matrices
+    alone outnumber the SMs (``sms``: the card's streaming
+    multiprocessors, an H100's by default, as the linter prices); block
+    (x, y) walks tiles y, y + grid_y, ... of matrix x."""
     n_blocks, rows, _ = _scale_dims(shape)
-    return (n_blocks, -(-rows // int(tile_rows)))
+    tiles = -(-rows // int(tile_rows))
+    return (n_blocks, min(tiles, max(1, int(sms) // max(n_blocks, 1))))
 
 
 def corpus_scale_smem_bytes(shape: Sequence[int], dtype,
@@ -107,7 +116,7 @@ def _entry(name: str):
     fn.argtypes = {
         "corpus_add_f32": [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
                                                     ctypes.c_void_p],
-        "corpus_scale_f32": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+        "corpus_scale_f32": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
         + [ctypes.c_longlong, ctypes.c_void_p],
         "corpus_smem_optin": [ctypes.POINTER(ctypes.c_int)],
     }[name]
@@ -163,10 +172,11 @@ def _corpus_add_fake(x, b):
 
 @torch.library.custom_op("paddle_tpu_torch::corpus_scale", mutates_args=())
 def corpus_scale(x: torch.Tensor, tile_rows: int) -> torch.Tensor:
-    """2 * x over float32 x [n_blocks, rows, cols], a tile of tile_rows x
-    cols staged in shared memory: ``corpus_scale_f32`` on CUDA tensors
-    (refused past the card's shared memory), :func:`corpus_scale_reference`
-    on CPU ones."""
+    """2 * x over float32 x [n_blocks, rows, cols] through a buffer of
+    tile_rows x cols in shared memory: ``corpus_scale_f32`` on CUDA
+    tensors over :func:`corpus_scale_grid` for the card's SM count
+    (refused past the card's shared memory),
+    :func:`corpus_scale_reference` on CPU ones."""
     smem = corpus_scale_smem_bytes(x.shape, x.dtype, tile_rows)
     if not _on_cuda("corpus_scale", x=x):
         return corpus_scale_reference(x)
@@ -175,10 +185,12 @@ def corpus_scale(x: torch.Tensor, tile_rows: int) -> torch.Tensor:
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    _, grid_y = corpus_scale_grid(x.shape, tile_rows, sms)
     with torch.cuda.device(x.device):
         err = _entry("corpus_scale_f32")(
             x.data_ptr(), out.data_ptr(), n_blocks, rows, cols,
-            int(tile_rows), smem, _stream(x))
+            int(tile_rows), grid_y, smem, _stream(x))
     _build.check(err, f"corpus_scale (tile_rows {tile_rows}: {smem} bytes "
                       "of shared memory a block)")
     corpus_scale.launches += 1

@@ -32,19 +32,66 @@
 // (`flash_bwd_*_f32`) or all bf16 (`flash_bwd_*_bf16`); lse and D are fp32
 // either way.  The two element types run two designs.
 //
-// fp32 only: FMA tiles.  256 threads as a 16x16 grid; each thread owns a 4x4
-// block of every 64x64 tile product (rows ty + 16i, columns tx + 16j) and the
-// output columns tx + 16c of its four rows, as in flash_fwd.cu.  The operand
-// tiles go through shared memory (rows padded by one float so the column reads
-// are free of bank conflicts), P and dS are staged there for the second
-// product, and the fp32 accumulators stay in registers; shared memory (83 KB /
-// 149 KB for dq, 100 KB / 166 KB for dkv at head_dim 64 / 128) is opted into
-// as dynamic shared memory.  The products stay exact fp32 FMAs: TF32 tensor
-// cores would round the operands to 10 mantissa bits, beyond the fp32 gate.
-// Bound on an H100: the fp32 flops of the visible (query, key) pairs (dq 6*D
-// a pair for S, dP and dQ; dkv 8*D for S, dP, dK and dV) over 67 TFLOP/s lead
-// the bytes at the training shape; in practice instruction issue bounds it
-// (8 shared loads for 16 FMAs), with one or two blocks an SM.
+// fp32 only: split-TF32 tensor-core tiles.  One pass of TF32 (operands
+// rounded to 10 mantissa bits) would put dQ, dK and dV 4e-4 to 8e-4 of
+// max(1, max |plain|) off the fp32 result, beyond the 1e-4 gate.  So every
+// fp32 operand x (Q, K, V and dO, and P and dS, which are built in
+// registers) is split as x = big + small, big = tf32(x) and small = tf32(x
+// - big) (x - big is exact in fp32), tf32() rounding as cvt.rna.tf32.f32
+// does, to nearest with ties away from zero, and each product sums
+// small·big + big·small + big·big, small terms first, on mma.sync.m16n8k8
+// with tf32 operands and fp32 accumulators; small·small (below 2^-22 of
+// the product) is dropped.  The five products are S = Q K^T and dP = dO V^T
+// in both kernels, dQ = dS K, dK = dS^T Q and dV = P^T dO.  Only the order
+// of the fp32 sums moves against the plain version; the split is the one
+// tests/test_torch_flash_bwd_tf32.py models on the CPU.
+// Bound on an H100: at the training shape (S 256, D 64) the bytes (Q, K,
+// V, dO, lse, D read once; dQ, or dK and dV, written once) over 3.35 TB/s
+// lead the three TF32 products a multiply over 494.7 TFLOP/s (dq 6*D
+// flops a visible pair, dkv 8*D) by about a fifth; the FMA bound of the
+// earlier design (the same flops once over 67 TFLOP/s) is about twice
+// either.  mma.sync reaches about 63% of the dense TF32 rate on this card,
+// and each split takes five integer and float instructions, so in practice
+// the issue of the split, the fragment loads and the exp work between the
+// products, not the bytes, bounds the kernels.  The design is the bf16
+// kernels' skeleton, below, with these changes:
+//   - 128 threads, four warps; each warp owns 16 rows of the block's 64-row
+//     tile and their fp32 accumulators in registers;
+//   - the block's own tiles (Q and dO in dq, K and V in dkv) stay in shared
+//     memory, raw, and each warp splits its own A fragments of them; the
+//     walked ones (K, V in dq; Q, dO, lse, D in dkv) pass through a
+//     two-stage cp.async ring of 32-row tiles, the next tile's copies in
+//     flight under the current tile's products; rows past Sq or klen are
+//     zero-filled.  Once a walked tile has landed, each thread splits the
+//     16-byte pieces it copied, big in place and small beside it, so that
+//     the four warps read both parts and the tile is split once, not once
+//     a warp (it took 6% off dkv and nothing off dq, where a warp splits
+//     more of its own rows);
+//   - fp32 tiles are [rows][D + 4]: with a row stride of 4 banks, a
+//     fragment read by row (8 rows g, 4 columns t) and one by column pairs
+//     (rows 2t and 2t + 1, 8 columns g) both fall in 32 distinct banks
+//     (there is no ldmatrix for 32-bit elements, so fragments are 32-bit
+//     shared loads);
+//   - the m16n8 accumulator holds columns 2t and 2t + 1 where the m16k8 A
+//     fragment wants columns t and t + 4.  Since a product sums over its k
+//     index in any order, the second product takes k slot t as key (or
+//     query) 2t and slot t + 4 as 2t + 1, in A and in B alike: P and dS go
+//     from the accumulators into A fragments with no shuffle and no trip
+//     through shared memory, and B reads rows 2t and 2t + 1 of the tile;
+//   - dkv computes S^T = K Q^T and dP^T = V dO^T, as the bf16 dkv does, so
+//     P^T and dS^T land in the accumulators of the warp that owns those keys;
+//   - dkv takes the walked tile in sub-blocks (F32Cfg) so that S^T, dP^T
+//     and the accumulators stay in registers with no spills: 162 registers a thread
+//     for dq and 198 for dkv at head_dim 64, 208 and 255 at 128.  Shared
+//     memory is 104,448 bytes a block for dq and 104,960 for dkv at
+//     head_dim 64 (two blocks an SM), 202,752 and 203,264 at 128 (one);
+//   - the grid is (B * H, tiles), and dq takes its query tiles last first:
+//     under a causal mask the blocks that walk the most tiles (dq's last
+//     query tile, dkv's first key tile) go out first, and the short ones
+//     fill the tail.
+// wgmma is not used: it takes tf32 operands only K-major, and K (in S and
+// in dS K) and Q and dO (in dkv) are read both ways, so each would need a
+// transposed copy in shared memory.
 //
 // bf16 only: tensor-core tiles.  The bf16 arithmetic of the TPU kernels is
 // what mma.sync.m16n8k16 with bf16 operands and fp32 accumulators computes:
@@ -109,287 +156,11 @@ namespace {
 constexpr int BQ = 64;        // query rows per tile
 constexpr int BK = 64;        // key rows per tile
 constexpr float NEG_INF = -1e30f;
-
-// ---------------------------------------------------------------------------
-// fp32: FMA tiles
-// ---------------------------------------------------------------------------
-
-constexpr int THREADS = 256;  // 16 x 16
-
-// Copies rows [r0, r0 + 64) of a [S, D] matrix into a [64][D + 1] fp32
-// shared tile; rows at or past `valid` are zero.
-template <int D>
-__device__ void load_tile(float* dst, const float* src, int r0, int valid,
-                          int tid) {
-  constexpr int D4 = D / 4;
-  for (int idx = tid; idx < 64 * D4; idx += THREADS) {
-    const int r = idx / D4, d = (idx % D4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < valid)
-      x = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * D + d);
-    float* p = dst + r * (D + 1) + d;
-    p[0] = x.x; p[1] = x.y; p[2] = x.z; p[3] = x.w;
-  }
-}
-
-// acc[i][j] += sum_d a[ty + 16i][d] * b[tx + 16j][d] over two [64][D+1] tiles.
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* a,
-                                         const float* b, int ty, int tx) {
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// acc[i][c] += sum_r w[ty + 16i][r] * m[r][tx + 16c]: w a [64][65] staging
-// tile, m a [64][D + 1] operand tile.
-template <int D>
-__device__ __forceinline__ void tile_matmul(float (&acc)[4][D / 16],
-                                            const float* w, const float* m,
-                                            int ty, int tx) {
-#pragma unroll 4
-  for (int r = 0; r < 64; ++r) {
-    float wv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) wv[i] = w[(ty + 16 * i) * 65 + r];
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      const float mv = m[r * (D + 1) + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(wv[i], mv, acc[i][c]);
-    }
-  }
-}
-
-template <int D>
-constexpr size_t dq_smem_floats() {
-  // q, do, k, v [64][D+1]; ds [64][65]
-  return 4 * (size_t)64 * (D + 1) + (size_t)64 * 65;
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ dvec,
-                    const int* __restrict__ k_lengths, float* __restrict__ dq,
-                    int H, int Sq, int Sk, float scale, int causal) {
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* q_s = smem;                  // [BQ][D+1]
-  float* do_s = q_s + BQ * (D + 1);   // [BQ][D+1]
-  float* k_s = do_s + BQ * (D + 1);   // [BK][D+1]
-  float* v_s = k_s + BK * (D + 1);    // [BK][D+1]
-  float* ds_s = v_s + BK * (D + 1);   // [BQ][BK+1]
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-
-  const float* qb = q + (size_t)bh * Sq * D;
-  const float* dob = dout + (size_t)bh * Sq * D;
-  const float* kb = k + (size_t)bh * Sk * D;
-  const float* vb = v + (size_t)bh * Sk * D;
-
-  const int klen = max(0, min(Sk, k_lengths[b]));
-  const int offset = Sk - Sq;  // bottom-right causal alignment
-  int k_end = klen;
-  if (causal) k_end = min(k_end, q0 + BQ + offset);
-
-  load_tile<D>(q_s, qb, q0, Sq, tid);
-  load_tile<D>(do_s, dob, q0, Sq, tid);
-  float row_lse[4], row_d[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    row_lse[i] = r < Sq ? lse[(size_t)bh * Sq + r] : -NEG_INF;
-    row_d[i] = r < Sq ? dvec[(size_t)bh * Sq + r] : 0.f;
-  }
-
-  float acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // q/do tiles written; previous k tile fully consumed
-    load_tile<D>(k_s, kb, k0, klen, tid);
-    load_tile<D>(v_s, vb, k0, klen, tid);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_dot<D>(s, q_s, k_s, ty, tx);
-    tile_dot<D>(dp, do_s, v_s, ty, tx);
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        const bool ok = kj < klen && (!causal || kj <= qi + offset);
-        const float p = ok ? expf(s[i][j] * scale - row_lse[i]) : 0.f;
-        ds_s[(ty + 16 * i) * (BK + 1) + tx + 16 * j] =
-            p * (dp[i][j] - row_d[i]) * scale;
-      }
-    }
-    __syncthreads();  // ds tile complete
-    tile_matmul<D>(acc, ds_s, k_s, ty, tx);
-  }
-
-  float* dqb = dq + (size_t)bh * Sq * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= Sq) continue;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dqb[(size_t)r * D + tx + 16 * c] = acc[i][c];
-  }
-}
-
-template <int D>
-constexpr size_t dkv_smem_floats() {
-  // k, v, q, do [64][D+1]; pt, dst [64][65]; lse, d [64]
-  return 4 * (size_t)64 * (D + 1) + 2 * (size_t)64 * 65 + 2 * 64;
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ dvec,
-                     const int* __restrict__ k_lengths,
-                     float* __restrict__ dk, float* __restrict__ dv, int H,
-                     int Sq, int Sk, float scale, int causal) {
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* k_s = smem;                  // [BK][D+1]
-  float* v_s = k_s + BK * (D + 1);    // [BK][D+1]
-  float* q_s = v_s + BK * (D + 1);    // [BQ][D+1]
-  float* do_s = q_s + BQ * (D + 1);   // [BQ][D+1]
-  float* pt_s = do_s + BQ * (D + 1);  // [BK][BQ+1]  P^T
-  float* dst_s = pt_s + BK * (BQ + 1);  // [BK][BQ+1]  dS^T
-  float* lse_s = dst_s + BK * (BQ + 1);  // [BQ]
-  float* d_s = lse_s + BQ;               // [BQ]
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int k0 = blockIdx.x * BK;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-
-  const float* qb = q + (size_t)bh * Sq * D;
-  const float* dob = dout + (size_t)bh * Sq * D;
-  const float* kb = k + (size_t)bh * Sk * D;
-  const float* vb = v + (size_t)bh * Sk * D;
-
-  const int klen = max(0, min(Sk, k_lengths[b]));
-  const int offset = Sk - Sq;
-  // first query tile holding a row that sees key k0: i >= k0 - offset
-  int q_begin = 0;
-  if (causal) q_begin = max(0, k0 - offset) / BQ * BQ;
-  // no visible key in this tile: the loop is empty and zeros are written
-
-  load_tile<D>(k_s, kb, k0, klen, tid);
-  load_tile<D>(v_s, vb, k0, klen, tid);
-
-  float dk_acc[4][DC], dv_acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
-  const int q_end = k0 < klen ? Sq : 0;
-  for (int q0 = q_begin; q0 < q_end; q0 += BQ) {
-    __syncthreads();  // k/v tiles written; previous q tile fully consumed
-    load_tile<D>(q_s, qb, q0, Sq, tid);
-    load_tile<D>(do_s, dob, q0, Sq, tid);
-    if (tid < BQ) {
-      const int r = q0 + tid;
-      lse_s[tid] = r < Sq ? lse[(size_t)bh * Sq + r] : -NEG_INF;
-      d_s[tid] = r < Sq ? dvec[(size_t)bh * Sq + r] : 0.f;
-    }
-    __syncthreads();
-
-    // transposed tiles: rows are keys (ty + 16i), columns queries (tx + 16j)
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_dot<D>(s, k_s, q_s, ty, tx);
-    tile_dot<D>(dp, v_s, do_s, ty, tx);
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kj = k0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qr = tx + 16 * j;
-        const int qi = q0 + qr;
-        const bool ok = kj < klen && (!causal || kj <= qi + offset);
-        const float p = ok ? expf(s[i][j] * scale - lse_s[qr]) : 0.f;
-        pt_s[(ty + 16 * i) * (BQ + 1) + qr] = p;
-        dst_s[(ty + 16 * i) * (BQ + 1) + qr] =
-            p * (dp[i][j] - d_s[qr]) * scale;
-      }
-    }
-    __syncthreads();  // P^T and dS^T complete
-    tile_matmul<D>(dv_acc, pt_s, do_s, ty, tx);
-    tile_matmul<D>(dk_acc, dst_s, q_s, ty, tx);
-  }
-
-  float* dkb = dk + (size_t)bh * Sk * D;
-  float* dvb = dv + (size_t)bh * Sk * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = k0 + ty + 16 * i;
-    if (r >= Sk) continue;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      dkb[(size_t)r * D + tx + 16 * c] = dk_acc[i][c];
-      dvb[(size_t)r * D + tx + 16 * c] = dv_acc[i][c];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16: tensor-core tiles
-// ---------------------------------------------------------------------------
-
-using bf16 = __nv_bfloat16;
-
 constexpr int MMA_THREADS = 128;  // four warps, 16 rows of the tile each
-constexpr unsigned CHUNK_BYTES = 16 * sizeof(bf16);  // a 16-deep k chunk
 
-// A [64][D + 8] bf16 tile: rows padded by 16 bytes
-template <int D>
-struct Tile {
-  static constexpr int LD = D + 8;
-  static constexpr int ELEMS = 64 * LD;
-};
+// ---------------------------------------------------------------------------
+// cp.async, for both element types
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -415,6 +186,500 @@ __device__ __forceinline__ void cp_commit() {
 __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+
+// ---------------------------------------------------------------------------
+// fp32: split-TF32 tensor-core tiles
+// ---------------------------------------------------------------------------
+
+// Rows of an fp32 tile are padded by 4 floats (16 bytes, 4 banks)
+template <int D>
+__host__ __device__ constexpr int f32_ld() {
+  return D + 4;
+}
+
+// Rows of a walked fp32 tile (keys in dq, queries in dkv); dq takes a
+// walked tile as one sub-block
+constexpr int F32_WALK = 32;
+
+// The fp32 kernels' shapes by head dim: rows of a dkv sub-block (S^T, dP^T
+// and the accumulators live in registers together) and the blocks an SM
+// the kernels are compiled for.
+template <int D>
+struct F32Cfg;
+template <>
+struct F32Cfg<64> {
+  static constexpr int DKV_SUB = 32, BLOCKS = 2;
+};
+template <>
+struct F32Cfg<128> {
+  static constexpr int DKV_SUB = 8, BLOCKS = 1;
+};
+
+// A 16 x 8 A fragment and an 8 x 8 B fragment, each split into its tf32
+// big and small parts.  With g = lane / 4 and t = lane % 4: a = {(g, t),
+// (g + 8, t), (g, t + 4), (g + 8, t + 4)}, b = {(k t, n g), (k t + 4, n g)};
+// the m16n8 fp32 accumulator c = {(g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8,
+// 2t + 1)}.
+struct FragA {
+  unsigned big[4], small[4];
+};
+struct FragB {
+  unsigned big[2], small[2];
+};
+
+// x rounded to tf32 as cvt.rna.tf32.f32 rounds a finite x: to nearest, ties
+// away from zero, at 10 mantissa bits.  On the bits, since the magnitude
+// sits below the sign: two integer instructions, where cvt.rna.tf32.f32
+// compiles to about five (it also keeps Inf and NaN apart, which no input
+// here needs: an Inf or NaN operand still gives a non-finite product).
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small + a rest below 2^-22 |x|: big = tf32(x), small = tf32(x -
+// big), where x - big is exact in fp32
+__device__ __forceinline__ void split_tf32(float x, unsigned& big,
+                                           unsigned& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void split_a(FragA& f, float x0, float x1,
+                                        float x2, float x3) {
+  split_tf32(x0, f.big[0], f.small[0]);
+  split_tf32(x1, f.big[1], f.small[1]);
+  split_tf32(x2, f.big[2], f.small[2]);
+  split_tf32(x3, f.big[3], f.small[3]);
+}
+
+// The A fragment of rows (g, g + 8) and columns (t, t + 4) from a shared
+// tile with row stride LD, p pointing at (g, t) of the 16 x 8 block
+template <int LD>
+__device__ __forceinline__ void load_a(FragA& f, const float* p) {
+  split_a(f, p[0], p[8 * LD], p[4], p[8 * LD + 4]);
+}
+
+__device__ __forceinline__ void mma_tf32_1688(float (&c)[4],
+                                              const unsigned (&a)[4],
+                                              unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b to about fp32 accuracy: small·big, big·small, then big·big
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
+                                     const FragB& b) {
+  mma_tf32_1688(c, a.small, b.big[0], b.big[1]);
+  mma_tf32_1688(c, a.big, b.small[0], b.small[1]);
+  mma_tf32_1688(c, a.big, b.big[0], b.big[1]);
+}
+
+// The A fragment of an accumulator's 16 x 8 block as the left operand of
+// the next product, k slot t taken as column 2t and slot t + 4 as 2t + 1
+// (the B operand reads rows 2t and 2t + 1 to match)
+__device__ __forceinline__ void acc_to_a(FragA& f, const float (&c)[4]) {
+  split_a(f, c[0], c[2], c[1], c[3]);
+}
+
+// Issues the 16-byte copies of rows [r0, r0 + ROWS) of a [S, D] fp32 matrix
+// into a [ROWS][D + 4] tile; rows at or past `valid` are zero-filled.
+template <int D, int ROWS>
+__device__ __forceinline__ void copy_tile_f32(float* dst, const float* src,
+                                              int r0, int valid, int tid) {
+  constexpr int CPR = D / 4;  // copies a row
+#pragma unroll
+  for (int i = 0; i < ROWS * CPR / MMA_THREADS; ++i) {
+    const int idx = tid + i * MMA_THREADS;
+    const int r = idx / CPR, c = (idx % CPR) * 4;
+    const bool live = r0 + r < valid;
+    cp16(dst + r * f32_ld<D>() + c,
+         src + (live ? (size_t)(r0 + r) * D + c : 0), live);
+  }
+}
+
+// Splits, in place, the ROWS x D floats this thread copied into a [ROWS][D +
+// 4] tile (copy_tile_f32's chunks of 16 bytes): big = tf32(x) stays, small =
+// tf32(x - big) goes to the same place of `small`.  Each warp then reads
+// both parts, so a walked tile is split once and not once a warp.
+template <int D, int ROWS>
+__device__ __forceinline__ void split_tile_f32(float* big, float* small,
+                                               int tid) {
+  constexpr int CPR = D / 4;
+#pragma unroll
+  for (int i = 0; i < ROWS * CPR / MMA_THREADS; ++i) {
+    const int idx = tid + i * MMA_THREADS;
+    const int at = (idx / CPR) * f32_ld<D>() + (idx % CPR) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(big + at);
+    uint4 hi, lo;
+    split_tf32(x.x, hi.x, lo.x);
+    split_tf32(x.y, hi.y, lo.y);
+    split_tf32(x.z, hi.z, lo.z);
+    split_tf32(x.w, hi.w, lo.w);
+    *reinterpret_cast<uint4*>(big + at) = hi;
+    *reinterpret_cast<uint4*>(small + at) = lo;
+  }
+}
+
+// The split B fragment (k rows r and r + dr, n column) of a tile split by
+// split_tile_f32, `off` at (r, n)
+__device__ __forceinline__ void load_b(FragB& f, const float* big,
+                                       const float* small, int off, int dr) {
+  f.big[0] = __float_as_uint(big[off]);
+  f.big[1] = __float_as_uint(big[off + dr]);
+  f.small[0] = __float_as_uint(small[off]);
+  f.small[1] = __float_as_uint(small[off + dr]);
+}
+
+template <int D>
+constexpr size_t dq_tf32_smem_bytes() {
+  // q, do [64]; a two-stage ring of (k, k small, v, v small) [F32_WALK]
+  return (2 * 64 + 8 * F32_WALK) * (size_t)f32_ld<D>() * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS, F32Cfg<D>::BLOCKS)
+flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ dvec,
+                         const int* __restrict__ k_lengths,
+                         float* __restrict__ dq, int H, int Sq, int Sk,
+                         float scale, int causal) {
+  constexpr int LD = f32_ld<D>(), WK = F32_WALK;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);
+  float* do_s = q_s + BQ * LD;
+  // stage s of the ring: k, k small, v, v small at ring + (4 s + i) WK LD
+  float* ring = do_s + BQ * LD;
+
+  // grid (B * H, query tiles), the last query tile first: under a causal
+  // mask it walks the most keys, so the longest blocks go out first
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  const float* qb = q + (size_t)bh * Sq * D;
+  const float* dob = dout + (size_t)bh * Sq * D;
+  const float* kb = k + (size_t)bh * Sk * D;
+  const float* vb = v + (size_t)bh * Sk * D;
+
+  const int klen = max(0, min(Sk, k_lengths[b]));
+  const int offset = Sk - Sq;  // bottom-right causal alignment
+  int k_end = klen;
+  if (causal) k_end = min(k_end, q0 + BQ + offset);
+  const int n_tiles = k_end > 0 ? (k_end + WK - 1) / WK : 0;
+
+  if (n_tiles > 0) {
+    copy_tile_f32<D, BQ>(q_s, qb, q0, Sq, tid);
+    copy_tile_f32<D, BQ>(do_s, dob, q0, Sq, tid);
+    copy_tile_f32<D, WK>(ring, kb, 0, klen, tid);
+    copy_tile_f32<D, WK>(ring + 2 * WK * LD, vb, 0, klen, tid);
+    cp_commit();
+  }
+
+  // this thread's rows of the warp's 16: row0 (g) and row0 + 8 (g + 8)
+  const int row0 = q0 + warp * 16 + g;
+  float row_lse[2], row_d[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    row_lse[h] = r < Sq ? lse[(size_t)bh * Sq + r] : -NEG_INF;
+    row_d[h] = r < Sq ? dvec[(size_t)bh * Sq + r] : 0.f;
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  // (g, t) of the warp's Q and dO rows
+  const float* q_w = q_s + (warp * 16 + g) * LD + t;
+  const float* do_w = do_s + (warp * 16 + g) * LD + t;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    float* k_t = ring + (it & 1) * 4 * WK * LD;
+    float* ks_t = k_t + WK * LD;
+    float* v_t = ks_t + WK * LD;
+    float* vs_t = v_t + WK * LD;
+    // this thread's copies of tile it have landed: split them; then the
+    // whole tile is split, and every warp is done with the stage tile it + 1
+    // goes to
+    cp_wait_all();
+    split_tile_f32<D, WK>(k_t, ks_t, tid);
+    split_tile_f32<D, WK>(v_t, vs_t, tid);
+    __syncthreads();
+    if (it + 1 < n_tiles) {
+      float* nxt = ring + ((it + 1) & 1) * 4 * WK * LD;
+      copy_tile_f32<D, WK>(nxt, kb, (it + 1) * WK, klen, tid);
+      copy_tile_f32<D, WK>(nxt + 2 * WK * LD, vb, (it + 1) * WK, klen, tid);
+      cp_commit();
+    }
+    const int k0 = it * WK;
+
+    // S = Q K^T and dP = dO V^T over the tile's keys
+    float s[WK / 8][4], dp[WK / 8][4];
+#pragma unroll
+    for (int j = 0; j < WK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < D / 8; ++kc) {
+      FragA qa, da;
+      load_a<LD>(qa, q_w + kc * 8);
+      load_a<LD>(da, do_w + kc * 8);
+#pragma unroll
+      for (int j = 0; j < WK / 8; ++j) {
+        // (k d, n key): rows g of the key block, columns t and t + 4
+        const int off = (8 * j + g) * LD + kc * 8 + t;
+        FragB kf, vf;
+        load_b(kf, k_t, ks_t, off, 4);
+        load_b(vf, v_t, vs_t, off, 4);
+        mma3(s[j], qa, kf);
+        mma3(dp[j], da, vf);
+      }
+    }
+    // P and dS in the accumulators: element e of n-tile j is query row
+    // row0 + 8 (e / 2), key k0 + 8 j + 2 t + e % 2
+#pragma unroll
+    for (int j = 0; j < WK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int qi = row0 + 8 * h;
+        const int kj = k0 + 8 * j + 2 * t + (e & 1);
+        const bool ok = kj < klen && (!causal || kj <= qi + offset);
+        const float p = ok ? expf(s[j][e] * scale - row_lse[h]) : 0.f;
+        s[j][e] = p * (dp[j][e] - row_d[h]) * scale;  // dS
+      }
+    }
+    // dQ += dS K, 8 keys a k step: slot t is key 2t, slot t + 4 key 2t + 1
+#pragma unroll
+    for (int j = 0; j < WK / 8; ++j) {
+      FragA dsa;
+      acc_to_a(dsa, s[j]);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const int off = (8 * j + 2 * t) * LD + 8 * n + g;
+        FragB kf;
+        load_b(kf, k_t, ks_t, off, LD);
+        mma3(acc[n], dsa, kf);
+      }
+    }
+  }
+
+  float* dqb = dq + (size_t)bh * Sq * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    if (r >= Sq) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(dqb + (size_t)r * D + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+  }
+}
+
+template <int D>
+constexpr size_t dkv_tf32_smem_bytes() {
+  // k, v [64]; a two-stage ring of (q, q small, do, do small) [F32_WALK]
+  // and of (lse, d) [F32_WALK]
+  constexpr int WQ = F32_WALK;
+  return (2 * 64 + 8 * WQ) * (size_t)f32_ld<D>() * sizeof(float) +
+         2 * 2 * WQ * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS, F32Cfg<D>::BLOCKS)
+flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ dvec,
+                          const int* __restrict__ k_lengths,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int H, int Sq, int Sk, float scale, int causal) {
+  constexpr int LD = f32_ld<D>(), WQ = F32_WALK;
+  constexpr int SUB = F32Cfg<D>::DKV_SUB;  // queries a sub-block
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* k_s = reinterpret_cast<float*>(smem_raw);
+  float* v_s = k_s + BK * LD;
+  // stage s of the ring: q, q small, do, do small at ring + (4 s + i) WQ LD
+  float* ring = v_s + BK * LD;
+  float* vec_ring = ring + 8 * WQ * LD;  // [2][lse, d][WQ]
+
+  // grid (B * H, key tiles), the first key tile first: under a causal mask
+  // it walks the most queries, so the longest blocks go out first
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int k0 = blockIdx.y * BK;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  const float* qb = q + (size_t)bh * Sq * D;
+  const float* dob = dout + (size_t)bh * Sq * D;
+  const float* kb = k + (size_t)bh * Sk * D;
+  const float* vb = v + (size_t)bh * Sk * D;
+  const float* lse_b = lse + (size_t)bh * Sq;
+  const float* d_b = dvec + (size_t)bh * Sq;
+
+  const int klen = max(0, min(Sk, k_lengths[b]));
+  const int offset = Sk - Sq;
+  // first query tile holding a row that sees key k0: i >= k0 - offset
+  const int q_begin = causal ? max(0, k0 - offset) / WQ * WQ : 0;
+  // no visible key in this tile: no tile is walked and zeros are written
+  const int q_end = k0 < klen ? Sq : 0;
+  const int n_tiles = q_end > q_begin ? (q_end - q_begin + WQ - 1) / WQ : 0;
+
+  // the q, do, lse and d rows of query tile q0 into ring stage `st`
+  auto copy_q_tile = [&](int st, int q0) {
+    float* dst = ring + st * 4 * WQ * LD;
+    copy_tile_f32<D, WQ>(dst, qb, q0, Sq, tid);
+    copy_tile_f32<D, WQ>(dst + 2 * WQ * LD, dob, q0, Sq, tid);
+    if (tid < 2 * WQ) {  // threads 0 to WQ - 1 copy lse, the next WQ d
+      const int r = tid % WQ;
+      const bool live = q0 + r < Sq;
+      cp4(vec_ring + st * 2 * WQ + tid,
+          (tid < WQ ? lse_b : d_b) + (live ? q0 + r : 0), live);
+    }
+  };
+
+  if (n_tiles > 0) {
+    copy_tile_f32<D, BK>(k_s, kb, k0, klen, tid);
+    copy_tile_f32<D, BK>(v_s, vb, k0, klen, tid);
+    copy_q_tile(0, q_begin);
+    cp_commit();
+  }
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  // this thread's key rows of the warp's 16: key0 (g) and key0 + 8 (g + 8)
+  const int key0 = k0 + warp * 16 + g;
+  // (g, t) of the warp's K and V rows
+  const float* k_w = k_s + (warp * 16 + g) * LD + t;
+  const float* v_w = v_s + (warp * 16 + g) * LD + t;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    float* q_t = ring + (it & 1) * 4 * WQ * LD;
+    float* qs_t = q_t + WQ * LD;
+    float* do_t = qs_t + WQ * LD;
+    float* dos_t = do_t + WQ * LD;
+    cp_wait_all();
+    split_tile_f32<D, WQ>(q_t, qs_t, tid);
+    split_tile_f32<D, WQ>(do_t, dos_t, tid);
+    __syncthreads();
+    if (it + 1 < n_tiles) {
+      copy_q_tile((it + 1) & 1, q_begin + (it + 1) * WQ);
+      cp_commit();
+    }
+    const float* lse_t = vec_ring + (it & 1) * 2 * WQ;
+    const float* d_t = lse_t + WQ;
+    const int q0 = q_begin + it * WQ;
+
+#pragma unroll 1
+    for (int sub = 0; sub < WQ; sub += SUB) {
+      // S^T = K Q^T and dP^T = V dO^T: rows are the warp's keys, columns
+      // this sub-block's queries
+      float st[SUB / 8][4], dpt[SUB / 8][4];
+#pragma unroll
+      for (int j = 0; j < SUB / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < D / 8; ++kc) {
+        FragA ka, va;
+        load_a<LD>(ka, k_w + kc * 8);
+        load_a<LD>(va, v_w + kc * 8);
+#pragma unroll
+        for (int j = 0; j < SUB / 8; ++j) {
+          const int off = (sub + 8 * j + g) * LD + kc * 8 + t;
+          FragB qf, of;
+          load_b(qf, q_t, qs_t, off, 4);
+          load_b(of, do_t, dos_t, off, 4);
+          mma3(st[j], ka, qf);
+          mma3(dpt[j], va, of);
+        }
+      }
+      // P^T and dS^T: element e of n-tile j is key key0 + 8 (e / 2), query
+      // column sub + 8 j + 2 t + e % 2
+#pragma unroll
+      for (int j = 0; j < SUB / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = key0 + 8 * (e >> 1);
+          const int col = sub + 8 * j + 2 * t + (e & 1);
+          const int qi = q0 + col;
+          const bool ok = kj < klen && qi < Sq &&
+                          (!causal || kj <= qi + offset);
+          const float p = ok ? expf(st[j][e] * scale - lse_t[col]) : 0.f;
+          dpt[j][e] = p * (dpt[j][e] - d_t[col]) * scale;  // dS^T
+          st[j][e] = p;                                    // P^T
+        }
+      }
+      // dV += P^T dO, dK += dS^T Q, 8 queries a k step: slot t is query
+      // 2t, slot t + 4 query 2t + 1
+#pragma unroll
+      for (int j = 0; j < SUB / 8; ++j) {
+        FragA pa, dsa;
+        acc_to_a(pa, st[j]);
+        acc_to_a(dsa, dpt[j]);
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          const int off = (sub + 8 * j + 2 * t) * LD + 8 * n + g;
+          FragB of, qf;
+          load_b(of, do_t, dos_t, off, LD);
+          load_b(qf, q_t, qs_t, off, LD);
+          mma3(dv_acc[n], pa, of);
+          mma3(dk_acc[n], dsa, qf);
+        }
+      }
+    }
+  }
+
+  float* dkb = dk + (size_t)bh * Sk * D;
+  float* dvb = dv + (size_t)bh * Sk * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = key0 + 8 * h;
+    if (r >= Sk) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const size_t at = (size_t)r * D + 8 * n + 2 * t;
+      *reinterpret_cast<float2*>(dkb + at) =
+          make_float2(dk_acc[n][2 * h], dk_acc[n][2 * h + 1]);
+      *reinterpret_cast<float2*>(dvb + at) =
+          make_float2(dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor-core tiles
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr unsigned CHUNK_BYTES = 16 * sizeof(bf16);  // a 16-deep k chunk
+
+// A [64][D + 8] bf16 tile: rows padded by 16 bytes
+template <int D>
+struct Tile {
+  static constexpr int LD = D + 8;
+  static constexpr int ELEMS = 64 * LD;
+};
 
 // Four 8x8 bf16 matrices from shared memory; lanes 8i .. 8i + 7 give the
 // row addresses of matrix i, and register i holds matrix i's (row lane / 4,
@@ -837,19 +1102,26 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
 // ---------------------------------------------------------------------------
 
 // Opts `kernel` into `smem` bytes of dynamic shared memory and launches it
-// on a (tiles, B * H) grid.  A refused attribute also sets the thread's last
-// error, which is cleared so that it does not surface at a later launch.
+// on `grid`.  A refused attribute also sets the thread's last error, which
+// is cleared so that it does not surface at a later launch.
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int tiles, int BH, int threads, size_t smem,
-           cudaStream_t stream, Args... args) {
+int launch_on(Kernel kernel, dim3 grid, int threads, size_t smem,
+              cudaStream_t stream, Args... args) {
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;
   }
-  kernel<<<dim3(tiles, BH), threads, smem, stream>>>(args...);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// launch_on a (tiles, B * H) grid
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int tiles, int BH, int threads, size_t smem,
+           cudaStream_t stream, Args... args) {
+  return launch_on(kernel, dim3(tiles, BH), threads, smem, stream, args...);
 }
 
 template <int D>
@@ -857,9 +1129,10 @@ int launch_dq(const float* q, const float* k, const float* v,
               const float* dout, const float* lse, const float* dvec,
               const int* kl, float* dq, int B, int H, int Sq, int Sk,
               float scale, int causal, cudaStream_t st) {
-  return launch(flash_bwd_dq_kernel<D>, (Sq + BQ - 1) / BQ, B * H, THREADS,
-                dq_smem_floats<D>() * sizeof(float), st, q, k, v, dout, lse,
-                dvec, kl, dq, H, Sq, Sk, scale, causal);
+  return launch_on(flash_bwd_dq_tf32_kernel<D>,
+                   dim3(B * H, (Sq + BQ - 1) / BQ), MMA_THREADS,
+                   dq_tf32_smem_bytes<D>(), st, q, k, v, dout, lse, dvec, kl,
+                   dq, H, Sq, Sk, scale, causal);
 }
 
 template <int D>
@@ -877,9 +1150,10 @@ int launch_dkv(const float* q, const float* k, const float* v,
                const float* dout, const float* lse, const float* dvec,
                const int* kl, float* dk, float* dv, int B, int H, int Sq,
                int Sk, float scale, int causal, cudaStream_t st) {
-  return launch(flash_bwd_dkv_kernel<D>, (Sk + BK - 1) / BK, B * H, THREADS,
-                dkv_smem_floats<D>() * sizeof(float), st, q, k, v, dout, lse,
-                dvec, kl, dk, dv, H, Sq, Sk, scale, causal);
+  return launch_on(flash_bwd_dkv_tf32_kernel<D>,
+                   dim3(B * H, (Sk + BK - 1) / BK), MMA_THREADS,
+                   dkv_tf32_smem_bytes<D>(), st, q, k, v, dout, lse, dvec, kl,
+                   dk, dv, H, Sq, Sk, scale, causal);
 }
 
 template <int D>
