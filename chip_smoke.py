@@ -12,8 +12,8 @@ prints no final result line):
    every CUDA kernel from ``paddle_tpu_torch/kernels/csrc`` (one ``nvcc``
    per source, all started together) with its seconds and ptxas report
    (each kernel instantiation's name, spills and registers); a kernel of
-   flash_bwd.cu or corpus.cu that spills fails the phase (the others'
-   spills are listed).
+   flash_fwd.cu, flash_bwd.cu or corpus.cu that spills fails the phase
+   (the others' spills are listed).
 2. Kernel parity, fp32 with TF32 off: ``flash_fwd`` against
    ``reference_attention`` and ``paged_decode`` against
    ``paged_decode_reference`` at the serving path's shapes (max abs error
@@ -22,10 +22,12 @@ prints no final result line):
    ``flash_attention_bwd_reference`` at the training shape and the edges
    (head_dim 64 and 128, causal and not, ragged lengths with a 0 row, S
    off the tile, Sk > Sq), max abs error <= 1e-4 * max(1, max |plain|);
-   each backward entry launched again on the same inputs gives bit-equal
-   outputs, and at the training shape one TF32 product a multiply (the
-   fp32 kernels split every operand for three; the plain model on the
-   same inputs) must fail that gate on dQ, dK and dV.
+   the largest relative lse error on rows with |lse| < 1 is reported;
+   the fp32 forward (with lse) and each backward entry launched again on
+   the same inputs give bit-equal outputs, and at the training shape the
+   planted faults, on the same inputs, must fail that gate: the backward
+   with one TF32 product a multiply on dQ, dK and dV, and the forward with
+   two (the fp32 kernels split every operand for three) on out.
    The paged kernel's verify and int8 variants against
    ``paged_verify_reference`` / ``paged_decode_reference`` on pages and
    scales the pool's own ``write_kv`` produced: verify at the serving
@@ -246,33 +248,37 @@ prints no final result line):
    full-size b, a 32 KiB broadcast, the scale at tile_rows 8.
 6. Times from CUDA events (median of 30 after warm-up, the launches queued
    behind a device sleep so host overhead stays out): each kernel, its
-   plain version, its bound (bytes over 3.35 TB/s or fp32 flops over
-   67 TFLOP/s, the larger) and one PyTorch library call for the same
-   function (SDPA, forward or backward; cuDNN's conv2d plus var_mean; the
-   batch_norm + add + relu chain); the verify and int8 variants of the
-   paged kernel at the speculative serving shape (SDPA over the gathered,
-   dequantized K/V); the backward kernels and flash_fwd with lse at the
-   training shape; conv_stats at the shapes of kernel rows 5 and 6,
-   bn_epilogue at row 7's; rows 4d and 4e at the long-context decode
-   shape after eviction (B 8, H 8, D 64, 34 live pages of a 4080-token
-   context; SDPA with a boolean mask over the gathered K/V) and row 4a
-   over the same context unevicted; the bf16 entries of rows 1-3 at the
-   training shape (bound over the dense bf16 tensor peak, 989 TFLOP/s;
+   plain version, its bound (bytes over 3.35 TB/s or fp32 flops over 67
+   TFLOP/s, the larger; the fp32 flash kernels' flops as three TF32
+   products over 494.7 TFLOP/s, the FMA bound beside it) and one PyTorch
+   library call for the same function (SDPA, forward or backward; cuDNN's
+   conv2d plus var_mean; the batch_norm + add + relu chain); the verify and
+   int8 variants of the paged kernel at the speculative serving shape (SDPA
+   over the gathered, dequantized K/V); the backward kernels and flash_fwd
+   with lse at the training shape; conv_stats at the shapes of kernel rows
+   5 and 6, bn_epilogue at row 7's; rows 4d and 4e at the long-context
+   decode shape after eviction (B 8, H 8, D 64, 34 live pages of a
+   4080-token context; SDPA with a boolean mask over the gathered K/V) and
+   row 4a over the same context unevicted; the bf16 entries of rows 1-3 at
+   the training shape (bound over the dense bf16 tensor peak, 989 TFLOP/s;
    SDPA in bf16); the fp32 backward's bound as three TF32 products a
    multiply over the dense TF32 peak, 494.7 TFLOP/s, with the FMA bound
    beside it, and the fp32 pair again at the encoder's non-causal shape
-   (k_lengths from the batch's source rows) beside SDPA's backward; the bf16 entries of conv_stats (row 6: in JAX every bf16
-   conv takes it) at rows 5 and 6's shapes and bn_epilogue at row 7's,
-   bytes at 2-byte activations, flops over the bf16 peak, the library
-   calls in bf16 on channels-last tensors; the bf16 entries of rows 4a
-   (serving shape and a 4080-token context), 4b (Sq 5), 4d and 4e (34
-   live pages) at the fp32 rows' shapes, bytes at 2-byte pages, SDPA in
-   bf16;
-   rows 8 and 9 at the corpus shapes (corpus_add on [512, 128], library
-   call x + lse[:, None]; corpus_scale over [2, 4096, 4096] at tile_rows
-   8 and 14, library call x * 2), bounds from bytes.  ``flash_fwd_sweep``: the
-   bf16 forward with lse and SDPA's forward (boolean mask and is_causal)
-   at H 8, D 64, causal, B * S = 8192 and S 256 to 2048.
+   (k_lengths from the batch's source rows) beside SDPA's backward, the
+   fp32 forward with lse there beside SDPA's forward; the bf16 entries of
+   conv_stats (row 6: in JAX every bf16 conv takes it) at rows 5 and 6's
+   shapes and bn_epilogue at row 7's, bytes at 2-byte activations, flops
+   over the bf16 peak, the library calls in bf16 on channels-last tensors;
+   the bf16 entries of rows 4a (serving shape and a 4080-token context), 4b
+   (Sq 5), 4d and 4e (34 live pages) at the fp32 rows' shapes, bytes at
+   2-byte pages, SDPA in bf16; rows 8 and 9 at the corpus shapes
+   (corpus_add on [512, 128], library call x + lse[:, None]; corpus_scale
+   over [2, 4096, 4096] at tile_rows 8 and 14, library call x * 2), bounds
+   from bytes; row 8 beside an empty kernel on its grid, launched and timed
+   the same way (its launch floor), and again at [524288, 128], where its
+   bytes lead.  ``flash_fwd_sweep``: the bf16 forward with lse, then the
+   fp32 one, and SDPA's forward in the same dtype (boolean mask and
+   is_causal) at H 8, D 64, causal, B * S = 8192 and S 256 to 2048.
    ``flash_bwd_sweep``: the bf16 backward kernels, then the fp32 ones,
    and SDPA's backward in the same dtype (boolean mask and is_causal) at
    the same shapes.  Both sweeps print the card's name and power limit.
@@ -305,7 +311,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak
 TF32_FLOPS_PER_S = 494.7e12  # dense tf32 tensor-core peak
-# the fp32 backward kernels' products are three TF32 products a multiply
+# the fp32 flash kernels' products are three TF32 products a multiply
 # (big·big, big·small, small·big of the split operands)
 TF32_PASSES = 3
 SEED = 0
@@ -331,7 +337,7 @@ def card_line() -> str:
 
 # sources whose kernels must build with no register spills (the others'
 # spills are reported)
-NO_SPILL_SOURCES = ("flash_bwd", "corpus")
+NO_SPILL_SOURCES = ("flash_fwd", "flash_bwd", "corpus")
 
 
 def phase_build():
@@ -479,7 +485,29 @@ def _one_tf32_pass_bwd(torch, fa, q, k, v, k_lengths, out, lse, dout,
             mm(p.transpose(-1, -2), dout))
 
 
-# the BWD_CASES at the training shape, where one TF32 pass must fail the gate
+def _two_tf32_products_fwd(torch, fa, q, k, v, causal, scale, k_lengths):
+    """(out, lse) of the fp32 forward with two TF32 products a multiply
+    (the left operand split, the right one rounded to tf32 once: one
+    small term dropped), the planted fault next to the kernel's three.
+    Otherwise flash_attention_fwd_reference's arithmetic, in plain
+    PyTorch with TF32 off."""
+    def mm(a, b):
+        big = _tf32(torch, a)
+        bb = _tf32(torch, b)
+        return torch.matmul(_tf32(torch, a - big), bb) + torch.matmul(big, bb)
+
+    s = mm(q, k.transpose(-1, -2)) * scale
+    vis = fa._visible(q.shape[0], s.shape[-2], s.shape[-1], causal,
+                      k_lengths, q.device)
+    s = s.masked_fill(~vis, fa.NEG_INF)
+    dead = s.amax(dim=-1) <= fa.NEG_INF / 2
+    p = torch.softmax(s, dim=-1).masked_fill(dead[..., None], 0.0)
+    lse = torch.logsumexp(s, dim=-1).masked_fill(dead, -fa.NEG_INF)
+    return mm(p, v), lse
+
+
+# the BWD_CASES at the training shape, where the planted faults (one TF32
+# pass in the backward, two products in the forward) must fail the gate
 ONE_PASS_REQUIRED = ("train_causal", "train_noncausal")
 
 
@@ -491,14 +519,18 @@ def phase_bwd_parity(torch):
     launched again on the same inputs must give bit-equal outputs, and at
     the training shape the planted fault, one TF32 product a multiply
     (_one_tf32_pass_bwd, on the same inputs), must fail the gate on dQ, dK
-    and dV."""
+    and dV; the fp32 forward launched again must give bit-equal out and
+    lse, and its planted fault, two TF32 products a multiply
+    (_two_tf32_products_fwd), must fail the gate on out at the training
+    shape.  The largest relative lse error on rows with |lse| < 1, where
+    the tensor cores' order of the score sums shows most, is reported."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
     dev = torch.device("cuda")
     rng = torch.Generator(device=dev).manual_seed(SEED + 2)
     cases, errs = [], {"flash_fwd": [], "flash_bwd_dq": [],
                        "flash_bwd_dkv": []}
-    relaunch, one_pass = {}, []
+    relaunch, one_pass, two_products, lse_rel = {}, [], [], {}
 
     def gate(got, want):
         err = float((got - want).abs().max())
@@ -533,6 +565,11 @@ def phase_bwd_parity(torch):
             raise AssertionError(f"{name}: a fully masked row's dQ is not 0")
         record("flash_fwd", name + "/out", out, want_out)
         record("flash_fwd", name + "/lse", lse[live], want_lse[live])
+        near0 = live & (want_lse.abs() < 1)
+        lse_rel[name] = {"rows": int(near0.sum()), "max_rel_err": float(
+            ((lse - want_lse).abs() / want_lse.abs())[near0].max())
+            if bool(near0.any()) else None}
+        out2, lse2 = fa.flash_attention_fwd(q, k, v, causal, scale, kl)
         record("flash_bwd_dq", name, dq, want[0])
         record("flash_bwd_dkv", name + "/dk", dk, want[1])
         record("flash_bwd_dkv", name + "/dv", dv, want[2])
@@ -541,7 +578,8 @@ def phase_bwd_parity(torch):
         dk2, dv2 = fa.flash_bwd_dkv(q, k, v, dout, lse, dvec, kl, causal,
                                     scale)
         relaunch[name] = [bool(torch.equal(a, b)) for a, b in
-                          ((dq, dq2), (dk, dk2), (dv, dv2))]
+                          ((out, out2), (lse, lse2), (dq, dq2), (dk, dk2),
+                           (dv, dv2))]
         if name in ONE_PASS_REQUIRED:
             fault = _one_tf32_pass_bwd(torch, fa, q, k, v, kl, want_out,
                                        want_lse, dout, causal, scale)
@@ -549,22 +587,37 @@ def phase_bwd_parity(torch):
                 err, bound = gate(got, w)
                 one_pass.append({"case": name, "grad": grad,
                                  "max_abs_err": err, "bound": bound})
-        del out, lse, dq, dk, dv, dq2, dk2, dv2
+            f_out, f_lse = _two_tf32_products_fwd(torch, fa, q, k, v,
+                                                  causal, scale, kl)
+            for what, got, w in (("out", f_out, want_out),
+                                 ("lse", f_lse[live], want_lse[live])):
+                err, bound = gate(got, w)
+                two_products.append({"case": name, "output": what,
+                                     "max_abs_err": err, "bound": bound})
+        del out, lse, out2, lse2, dq, dk, dv, dq2, dk2, dv2
     emit({"phase": "bwd_parity", "tolerance": "max abs err <= "
           f"{PARITY_TOL} * max(1, max |plain|)", "cases": cases,
+          "lse_near_0": lse_rel,
           "relaunch_bit_equal": relaunch,
-          "one_tf32_pass_fault": one_pass})
+          "relaunch_order": ["out", "lse", "dq", "dk", "dv"],
+          "one_tf32_pass_fault": one_pass,
+          "two_tf32_products_fwd_fault": two_products})
     bad = [c for c in cases if not c["max_abs_err"] <= c["bound"]]
     if bad:
         raise AssertionError(f"backward parity beyond its bound: {bad}")
     unequal = {n: r for n, r in relaunch.items() if not all(r)}
     if unequal:
-        raise AssertionError(f"fp32 backward relaunch not bit-equal (dq, dk, "
-                             f"dv): {unequal}")
+        raise AssertionError(f"fp32 relaunch not bit-equal (out, lse, dq, "
+                             f"dk, dv): {unequal}")
     passed = [f for f in one_pass if f["max_abs_err"] <= f["bound"]]
     if passed or not one_pass:
         raise AssertionError(f"one TF32 pass a product passed the gate: "
                              f"{passed}")
+    passed = [f for f in two_products if f["output"] == "out"
+              and f["max_abs_err"] <= f["bound"]]
+    if passed or not two_products:
+        raise AssertionError(f"the forward with two TF32 products a multiply "
+                             f"passed the gate on out: {passed}")
     return {k: max(v) for k, v in errs.items()}
 
 
@@ -4413,13 +4466,49 @@ def phase_analysis(torch, np):
     return errs, launches
 
 
+# an empty kernel, launched through ctypes as the port's kernels are: the
+# launch floor that row 8's time at the corpus shape is read against
+EMPTY_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+ADD_FLOOR_ROWS = 512 * 1024  # row 8 at [ADD_FLOOR_ROWS, 128]: bytes lead
+
+
+def _empty_launch():
+    """The C entry ``empty_launch(blocks, threads, stream)`` of EMPTY_SRC,
+    built with the kernels' nvcc flags into the build directory."""
+    import ctypes
+
+    from paddle_tpu_torch.kernels import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _build.BUILD_DIR / "empty_launch.cu"
+    so = _build.BUILD_DIR / "libempty_launch.so"
+    src.write_text(EMPTY_SRC)
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                    str(src)], check=True, capture_output=True, timeout=300)
+    fn = ctypes.CDLL(str(so)).empty_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def phase_analysis_timing(torch, np, errs, launches):
     """Row 8 (corpus_add) at the corpus shape, x [512, 128] + a materialised
     [512] broadcast, and row 9 (corpus_scale) over [2, 4096, 4096] at
     tile_rows 8, and again at 14, the main path's launch.  Bounds: each
     input read and the output written once over 3.35 TB/s.  Library calls:
     x + lse[:, None] by torch broadcasting (it reads the [512] vector, not
-    the materialised operand), and x * 2."""
+    the materialised operand), and x * 2.  Row 8's launch floor beside it:
+    an empty kernel on corpus_add's grid at the corpus shape, launched
+    through ctypes and timed the same way, and row 8 again at
+    [ADD_FLOOR_ROWS, 128], where its bytes, not the launch, lead."""
+    from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import corpus as ck
 
     dev = torch.device("cuda")
@@ -4438,6 +4527,29 @@ def phase_analysis_timing(torch, np, errs, launches):
         device_ms(torch, lambda: x + lse[:, None]),
         {"x": [512, 128], "b": [512, 128], "library_call":
          "x + lse[:, None] (torch broadcasting)"})
+    empty = _empty_launch()
+    blocks = ck.corpus_add_grid(x.numel())[0]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run_empty():
+        _build.check(empty(blocks, ck.ADD_THREADS, stream), "empty_launch")
+
+    add["launch_floor"] = {"empty_kernel_ms": device_ms(torch, run_empty),
+                           "grid": [blocks], "threads": ck.ADD_THREADS}
+    xb = torch.from_numpy(rng.standard_normal((ADD_FLOOR_ROWS, 128),
+                                              dtype=np.float32)).to(dev)
+    lb = torch.from_numpy(rng.standard_normal(ADD_FLOOR_ROWS,
+                                              dtype=np.float32)).to(dev)
+    bb = lb[:, None].expand(ADD_FLOOR_ROWS, 128).contiguous()
+    if not torch.equal(ck.corpus_add(xb, bb), xb + bb):
+        raise AssertionError("corpus_add at the bytes-leading size is not "
+                             "bit-equal to x + b")
+    add["at_bytes_leading_size"] = {
+        "x": [ADD_FLOOR_ROWS, 128],
+        "ms": device_ms(torch, lambda: ck.corpus_add(xb, bb)),
+        "bound_ms": 1e3 * 3 * 4 * xb.numel() / HBM_BYTES_PER_S,
+        "library_ms": device_ms(torch, lambda: xb + lb[:, None])}
+    del xb, lb, bb
     xs = torch.from_numpy(rng.standard_normal(SCALE_SHAPE,
                                               dtype=np.float32)).to(dev)
     scale = _row(
@@ -4513,7 +4625,9 @@ def phase_timing(torch, np, reqs, parity_err, launches):
             & (pos[None, :] <= pos[:, None])[None, None])
     pairs = sum(sum(min(n, i + 1) for i in range(S)) for n in lens) * H
     f_bytes = 4 * (2 * B * H * S * D + 2 * H * D * sum(lens)) + 4 * B
-    f_flops = 4 * D * pairs
+    # three TF32 products a multiply on the tensor cores (the FMA bound of
+    # the same flops once over the fp32 peak beside it)
+    f_flops = TF32_PASSES * 4 * D * pairs
     kernels.append(_row(
         "flash_fwd", "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
         "paddle_tpu/kernels/flash_attention.py:317", launches["flash_fwd"],
@@ -4525,7 +4639,9 @@ def phase_timing(torch, np, reqs, parity_err, launches):
         f_bytes, f_flops,
         device_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=scale)),
-        {"B": B, "H": H, "S": S, "D": D, "k_lengths": lens}))
+        {"B": B, "H": H, "S": S, "D": D, "k_lengths": lens},
+        TF32_FLOPS_PER_S))
+    kernels[-1]["fma_bound_ms"] = 1e3 * 4 * D * pairs / FP32_FLOPS_PER_S
 
     # paged_decode at a mid-generation decode step of that group: each
     # sequence holds its prompt plus half the new tokens
@@ -4672,17 +4788,17 @@ def phase_train_timing(torch, bwd_err, launches, cfg, batch, bf16=False):
     count each input read once (K and V rows up to each row's length, at
     the element size; lse, D and the lengths in 4 bytes) and each output
     written once, and the flops of the visible (query, key) pairs: 4*D
-    forward, 6*D dq (S, dP, dQ), 8*D dkv (S, dP, dK, dV), over the fp32
-    peak (the forward) or, for bf16, the dense bf16 tensor peak; the fp32
-    backward's as TF32_PASSES products over the dense TF32 tensor peak,
-    with the FMA bound (the flops once over the fp32 peak) beside it as
-    ``fma_bound_ms``.  The plain time of both backward rows is
-    flash_attention_bwd_reference, which computes dQ, dK and dV together;
-    so is the library call, SDPA's backward through a boolean mask (in the
-    same dtype).  In fp32 the pair is timed again at the encoder's shape
-    (non-causal, k_lengths from the batch's source rows: the encoder
-    self-attention and the cross-attention, 12 of a step's 18 launches of
-    each backward kernel), beside SDPA's backward there."""
+    forward, 6*D dq (S, dP, dQ), 8*D dkv (S, dP, dK, dV), over the dense
+    bf16 tensor peak for bf16; in fp32 as TF32_PASSES products over the
+    dense TF32 tensor peak, with the FMA bound (the flops once over the
+    fp32 peak) beside it as ``fma_bound_ms``.  The plain time of both
+    backward rows is flash_attention_bwd_reference, which computes dQ, dK
+    and dV together; so is the library call, SDPA's backward through a
+    boolean mask (in the same dtype).  In fp32 the pair is timed again at
+    the encoder's shape (non-causal, k_lengths from the batch's source
+    rows: the encoder self-attention and the cross-attention, 12 of a
+    step's 18 launches of each flash kernel), beside SDPA's backward there,
+    and so is the forward with lse, beside SDPA's forward."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -4694,9 +4810,8 @@ def phase_train_timing(torch, bwd_err, launches, cfg, batch, bf16=False):
     scale = D ** -0.5
     dtype = torch.bfloat16 if bf16 else torch.float32
     suffix, e = ("_bf16", 2) if bf16 else ("", 4)
-    peak = BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S
-    bwd_peak, passes = ((BF16_FLOPS_PER_S, 1) if bf16
-                        else (TF32_FLOPS_PER_S, TF32_PASSES))
+    peak, passes = ((BF16_FLOPS_PER_S, 1) if bf16
+                    else (TF32_FLOPS_PER_S, TF32_PASSES))
     fwd_plain = (fa.flash_attention_fwd_bf16_reference if bf16
                  else fa.flash_attention_fwd_reference)
     lens = [int(n) for n in (batch["trg_word"] != cfg.pad_idx).sum(axis=1)]
@@ -4728,7 +4843,7 @@ def phase_train_timing(torch, bwd_err, launches, cfg, batch, bf16=False):
              device_ms(torch, lambda: fa.flash_bwd_dq(
                  q, k, v, dout, lse, dvec, kl, True, scale)),
              plain_bwd, e * (3 * full + 2 * kv_rows) + 4 * (2 * rows + B),
-             passes * 6 * D * pairs, sdpa_bwd, shape, bwd_peak),
+             passes * 6 * D * pairs, sdpa_bwd, shape, peak),
         _row("flash_bwd_dkv" + suffix,
              "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
              "paddle_tpu/kernels/flash_attention.py:409",
@@ -4736,7 +4851,7 @@ def phase_train_timing(torch, bwd_err, launches, cfg, batch, bf16=False):
              device_ms(torch, lambda: fa.flash_bwd_dkv(
                  q, k, v, dout, lse, dvec, kl, True, scale)),
              plain_bwd, e * (4 * full + 2 * kv_rows) + 4 * (2 * rows + B),
-             passes * 8 * D * pairs, sdpa_bwd, shape, bwd_peak)]
+             passes * 8 * D * pairs, sdpa_bwd, shape, peak)]
     encoder = None
     if not bf16:
         for r, flops in zip(rows_out, (6 * D * pairs, 8 * D * pairs)):
@@ -4759,7 +4874,7 @@ def phase_train_timing(torch, bwd_err, launches, cfg, batch, bf16=False):
                 ("flash_bwd_dkv", fa.flash_bwd_dkv, 4, 8)):
             t_bytes = 1e3 * (4 * (n_full * full + 2 * enc_kv)
                              + 4 * (2 * rows + B)) / HBM_BYTES_PER_S
-            t_ops = 1e3 * TF32_PASSES * flops * D * enc_pairs / bwd_peak
+            t_ops = 1e3 * TF32_PASSES * flops * D * enc_pairs / peak
             encoder[name] = {
                 "ms": device_ms(torch, lambda: fn(
                     q, k, v, dout, lse_e, dvec_e, kl_src, False, scale)),
@@ -4767,6 +4882,18 @@ def phase_train_timing(torch, bwd_err, launches, cfg, batch, bf16=False):
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "fma_bound_ms": 1e3 * flops * D * enc_pairs
                 / FP32_FLOPS_PER_S}
+        t_bytes = 1e3 * (4 * (2 * full + 2 * enc_kv) + 4 * (rows + B)
+                         ) / HBM_BYTES_PER_S
+        t_ops = 1e3 * TF32_PASSES * 4 * D * enc_pairs / peak
+        encoder["flash_fwd"] = {
+            "ms": device_ms(torch, lambda: fa.flash_attention_fwd(
+                q, k, v, False, scale, kl_src)),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "fma_bound_ms": 1e3 * 4 * D * enc_pairs / FP32_FLOPS_PER_S,
+            "library_ms": device_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask_e, scale=scale))}
         del qe, ke, ve, sdpa_e, out_e, lse_e, dvec_e
     fwd = _row("flash_fwd" + suffix,
                "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
@@ -4775,9 +4902,12 @@ def phase_train_timing(torch, bwd_err, launches, cfg, batch, bf16=False):
                device_ms(torch, lambda: fa.flash_attention_fwd(
                    q, k, v, True, scale, kl)),
                device_ms(torch, lambda: fwd_plain(q, k, v, True, scale, kl)),
-               e * (2 * full + 2 * kv_rows) + 4 * (rows + B), 4 * D * pairs,
+               e * (2 * full + 2 * kv_rows) + 4 * (rows + B),
+               passes * 4 * D * pairs,
                device_ms(torch, lambda: F.scaled_dot_product_attention(
                    q, k, v, attn_mask=mask, scale=scale)), shape, peak)
+    if not bf16:
+        fwd["fma_bound_ms"] = 1e3 * 4 * D * pairs / FP32_FLOPS_PER_S
     emit({"phase": "train_timing" + suffix,
           "method": "CUDA events, median of 30 "
           "after 5 warm-up calls, queued behind torch.cuda._sleep",
@@ -4787,7 +4917,8 @@ def phase_train_timing(torch, bwd_err, launches, cfg, batch, bf16=False):
           "plain_call": "flash_attention_bwd_reference, dQ, dK and dV "
           "together (backward rows)",
           "flash_fwd_with_lse": {k: fwd[k] for k in (
-              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "fma_bound_ms") if k in fwd},
           "rows": [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms",
                                       "fma_bound_ms") if k in r}
@@ -4799,6 +4930,7 @@ def phase_train_timing(torch, bwd_err, launches, cfg, batch, bf16=False):
         for r in rows_out:
             r["encoder_noncausal"] = dict(encoder[r["name"]],
                                           library_ms=encoder["library_ms"])
+        fwd["encoder_noncausal"] = encoder["flash_fwd"]
     return fwd, rows_out
 
 
@@ -4874,13 +5006,16 @@ def phase_flash_bwd_sweep(torch):
 
 
 def phase_flash_fwd_sweep(torch):
-    """The bf16 forward (with lse) against SDPA's forward at bench's head
-    shape (H 8, D 64, causal) with B * S held at 8192 tokens and S from
-    256 to 2048, every key visible up to its causal frontier.  SDPA is
-    timed through a boolean causal mask (the library call of the timing
-    rows) and with ``is_causal=True``.  Bound: Q, K, V read and O written
-    once at 2 bytes, lse at 4; 4*D flops per visible pair over the bf16
-    peak."""
+    """The forward (with lse) against SDPA's forward at bench's head shape
+    (H 8, D 64, causal) with B * S held at 8192 tokens and S from 256 to
+    2048, every key visible up to its causal frontier: the bf16 entry on
+    bf16 tensors, then the fp32 entry on fp32 tensors (SDPA in the same
+    dtype, TF32 off).  SDPA is timed through a boolean causal mask (the
+    library call of the timing rows) and with ``is_causal=True``.  Bound:
+    Q, K, V read and O written once at the element size, lse at 4 bytes;
+    4*D flops per visible pair over the dense bf16 peak, or TF32_PASSES
+    times that over the dense TF32 peak (fp32, with the FMA bound beside
+    it)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -4889,35 +5024,44 @@ def phase_flash_fwd_sweep(torch):
     rng = torch.Generator(device=dev).manual_seed(SEED + 13)
     H, D = 8, 64
     scale = D ** -0.5
-    rows = []
-    for S in SWEEP_S:
-        B = SWEEP_TOKENS // S
-        q, k, v = (torch.randn(B, H, S, D, generator=rng, device=dev)
-                   .to(torch.bfloat16) for _ in range(3))
-        kl = torch.full((B,), S, dtype=torch.int32, device=dev)
-        mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
-        pairs = B * H * S * (S + 1) // 2
-        full = B * H * S * D
-        rows.append({
-            "S": S, "B": B,
-            "fwd_ms": device_ms(torch, lambda: fa.flash_attention_fwd(
-                q, k, v, True, scale, kl)),
-            "bound_ms": 1e3 * max((2 * 4 * full + 4 * B * H * S)
-                                  / HBM_BYTES_PER_S,
-                                  4 * D * pairs / BF16_FLOPS_PER_S),
-            "sdpa_mask_ms": device_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, scale=scale)),
-            "sdpa_is_causal_ms": device_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, scale=scale))})
-        del q, k, v
-    emit({"phase": "flash_fwd_sweep", "card": card_line(),
-          "dtype": "bfloat16", "H": H, "D": D, "causal": True,
-          "tokens": SWEEP_TOKENS, "method": "CUDA events, median of 30 "
-          "after 5 warm-up calls, queued behind torch.cuda._sleep",
-          "rows": rows})
-    return rows
+    out_rows = {}
+    for dtype, e, peak, passes in (
+            (torch.bfloat16, 2, BF16_FLOPS_PER_S, 1),
+            (torch.float32, 4, TF32_FLOPS_PER_S, TF32_PASSES)):
+        rows = []
+        for S in SWEEP_S:
+            B = SWEEP_TOKENS // S
+            q, k, v = (torch.randn(B, H, S, D, generator=rng, device=dev)
+                       .to(dtype) for _ in range(3))
+            kl = torch.full((B,), S, dtype=torch.int32, device=dev)
+            mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+            pairs = B * H * S * (S + 1) // 2
+            full = B * H * S * D
+            row = {
+                "S": S, "B": B,
+                "fwd_ms": device_ms(torch, lambda: fa.flash_attention_fwd(
+                    q, k, v, True, scale, kl)),
+                "bound_ms": 1e3 * max((e * 4 * full + 4 * B * H * S)
+                                      / HBM_BYTES_PER_S,
+                                      passes * 4 * D * pairs / peak),
+                "sdpa_mask_ms": device_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask, scale=scale)),
+                "sdpa_is_causal_ms": device_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, scale=scale))}
+            if dtype == torch.float32:
+                row["fma_bound_ms"] = 1e3 * 4 * D * pairs / FP32_FLOPS_PER_S
+            rows.append(row)
+            del q, k, v
+        name = str(dtype).removeprefix("torch.")
+        emit({"phase": "flash_fwd_sweep", "card": card_line(),
+              "dtype": name, "H": H, "D": D, "causal": True,
+              "tokens": SWEEP_TOKENS, "method": "CUDA events, median of 30 "
+              "after 5 warm-up calls, queued behind torch.cuda._sleep",
+              "rows": rows})
+        out_rows[name] = rows
+    return out_rows
 
 
 def _conv_stats_work(N, H, W, C, Fo, K, s, p, itemsize=4):
@@ -5152,8 +5296,8 @@ def main() -> int:
     # the fp32 backward rows run in the fp32 phase and under amp1
     fp32_bwd_launches = {k: train_launches[k] + amp_launches["amp1"][k]
                          for k in FLASH_KERNELS}
-    _, bwd_rows = phase_train_timing(torch, bwd_err, fp32_bwd_launches, cfg,
-                                     batch)
+    fp32_fwd, bwd_rows = phase_train_timing(torch, bwd_err,
+                                            fp32_bwd_launches, cfg, batch)
     for r in bwd_rows:
         kernel = r["name"]
         r["launches_by_path"] = {"training": train_launches[kernel],
@@ -5186,6 +5330,10 @@ def main() -> int:
     kernels[0]["launches_by_path"] = by_path
     kernels[0]["max_abs_err"] = max(parity_err["flash_fwd"],
                                     bwd_err["flash_fwd"])
+    # the fp32 forward with lse at the training shapes (phase train_timing)
+    kernels[0]["training_with_lse"] = {k: fp32_fwd[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "fma_bound_ms",
+        "library_ms", "encoder_noncausal")}
     by_path = {"serving": serve_launches["paged_decode"],
                "speculative_serving": spec_launches["spec"]["decode_f32"],
                "long_context_no_window":

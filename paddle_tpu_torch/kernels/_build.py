@@ -1,9 +1,11 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` is one self-contained source with a plain C
-interface.  It compiles on its own into ``build/lib<name>-<hash>.so``,
-where the hash covers the source bytes and the compiler flags, so an
-edited source rebuilds and an unchanged one is reused.  ``build()``
+Each ``csrc/<name>.cu`` is one source with a plain C interface, which
+may include headers of ``csrc/`` (``#include "<header>.cuh"``).  It
+compiles on its own into ``build/lib<name>-<hash>.so``, where the hash
+covers the source bytes, the bytes of the headers it includes and the
+compiler flags, so an edited source or header rebuilds and an unchanged
+one is reused.  ``build()``
 starts one ``nvcc`` per missing library, all at once, and waits for all
 of them; ``library(name)`` builds on first use and loads the result.
 Nothing here runs at import time: the CPU tests import every module on
@@ -20,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -66,8 +69,24 @@ def nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _source_bytes(path: Path, seen=None) -> bytes:
+    """The bytes of ``path`` and of the ``csrc/`` headers it includes,
+    transitively, each once."""
+    seen = set() if seen is None else seen
+    seen.add(path)
+    data = path.read_bytes()
+    for inc in _INCLUDE.findall(data):
+        header = CSRC / inc.decode()
+        if header not in seen:
+            data += _source_bytes(header, seen)
+    return data
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = _source_bytes(CSRC / f"{name}.cu")
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

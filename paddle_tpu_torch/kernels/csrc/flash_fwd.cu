@@ -25,21 +25,67 @@
 // tile) are masked in the kernel; nothing is padded in device memory.  The
 // two element types run two designs.
 //
-// fp32 only: FMA tiles.  One thread block per (b*h, 64-query tile): 256
-// threads as a 16x16 grid, thread (ty, tx) owning query rows ty + 16i and key
-// columns tx + 16j (i, j < 4) of each 64x64 score tile, and output columns
-// tx + 16c of its four rows.  K and V tiles go through shared memory (Q and K
-// rows padded by one float, so the column reads of the score product are free
-// of bank conflicts), P is staged there for the PV product, and the running
-// max m, sum l and the accumulator stay in registers; row reductions are
-// 16-lane shuffles inside a half-warp.  In fp32 the key tile moves nothing
-// but the order of the sums (no value is rounded to a narrower type against
-// the running max), so this kernel keeps its 64-key tile.  Bound on an H100:
-// at the training shape the fp32 flops (4*D per visible query-key pair) over
-// 67 TFLOP/s lead the bytes; in practice instruction issue bounds it (every
-// score and PV term an FMA fed from shared memory).  The products stay exact
-// fp32 FMAs: TF32 tensor cores would round the operands to 10 mantissa bits,
-// beyond the fp32 gate of 1e-4 * max(1, max |plain|).
+// fp32 only: split-TF32 tensor-core tiles.  One TF32 product a multiply
+// (operands rounded to 10 mantissa bits) puts the output several times the
+// fp32 gate of 1e-4 * max(1, max |plain|) off the fp32 result, and two (one
+// operand's small part dropped) still put it outside the gate
+// (tests/test_torch_flash_fwd_tf32.py, chip_smoke.py's bwd_parity).  So
+// Q, K, V and P (built in registers) are split into their tf32 big and
+// small parts and each of the two products, S = Q K^T and O += P V, runs as
+// three TF32 products on mma.sync.m16n8k8, small terms first (tf32_split.cuh,
+// shared with the fp32 backward); only the order of the fp32 sums moves
+// against the plain version.  In fp32 the key tile moves nothing but that
+// order (no value is rounded to a narrower type against the running max),
+// so the walked tile is sized for the card.
+// Bound on an H100: at the training shape (B 32, H 8, S 256, D 64, causal)
+// the bytes (Q, K, V read once, O and lse written once, over 3.35 TB/s)
+// lead the three TF32 products (3 * 4*D flops a visible pair over 494.7
+// TFLOP/s) by about half; the FMA bound of the earlier design (4*D flops
+// once over 67 TFLOP/s) is about 1.6 times the bytes'.  In practice no one
+// resource bounds the kernel: dropping one of the three products a
+// multiply (the planted fault of probe_kernel_variants.py) takes only a
+// seventh off its time, the tensor pipe runs well under mma.sync's own
+// rate, and the fragment loads, the split of the walked tiles and the wait
+// for their copies each hold a share.  The design is the fp32 backward's
+// dq kernel with dP and dS taken out and the online softmax put in:
+//   - one block per (b*h, 64-query tile), 128 threads: four warps, each
+//     owning 16 query rows, their fp32 accumulators (16 x D) and their
+//     running m (unscaled: scale * max S is the max of the scaled scores)
+//     and l (this thread's share of the row sum) in registers; the four
+//     lanes of a row reduce their max with two xor shuffles per tile and
+//     their sums once, at the end;
+//   - the block's Q tile is copied once and split once, in shared memory; at
+//     head_dim 64 each warp then keeps its split A fragments in registers
+//     for the whole walk (FwdCfg::Q_REGS), at 128 it reads them from the
+//     split tile at each use;
+//   - K and V pass through a two-stage cp.async ring of [WALK][D + 4]
+//     tiles, the next tile's copies in flight under the current tile's
+//     products; rows past klen are zero-filled, and each thread splits the
+//     16-byte pieces it copied, once per block.  At head_dim 64 the tiles
+//     are 16 keys and three blocks share an SM (69,632 bytes of shared
+//     memory and at most 168 registers a thread), at 128 they are 32 keys,
+//     one block (202,752 bytes);
+//   - S's three products go to three accumulators (mma3_apart), each a
+//     chain of D / 8 mma.sync, summed as (small·big + big·small) +
+//     big·big; S becomes P in place, and acc_to_a turns it into the A
+//     fragment of O += P V with k slot t as key 2t, so the V fragment reads
+//     rows 2t and 2t + 1: nothing score-shaped goes through shared memory;
+//   - exp is the bare MUFU.EX2 (ex2_approx) of one FFMA with scale *
+//     log2(e) folded in;
+//   - a warp skips the 8-key n-tiles past its rows' last visible key (a
+//     tile it sees none of leaves m, l and acc as they are); only n-tiles
+//     that cross a row's frontier or klen are masked;
+//   - grid (B * H, query tiles), the last query tile first: under a causal
+//     mask the blocks that walk the most keys go out first.
+// wgmma was tried for S (Q and K split and 128-byte swizzled in shared
+// memory, m64n32k8): waited at once it ran within a few per cent of
+// mma.sync, and issued a tile ahead under the softmax and P V it ran
+// slower and spilled at head_dim 128; P V cannot take it (tf32 operands
+// must be K-major, and V is read down its rows).  lse = scale m + log l in
+// fp32; the tensor cores' order of the score sums moves an lse near 0 by a
+// larger share of itself than elsewhere, which the fp32 gate (absolute, on
+// max(1, max |lse|)) allows; the bf16 kernel's in-order re-sum
+// (lse_in_order, below) is not needed by any fp32 gate.
 //
 // bf16 only: tensor-core tiles over the TPU kernel's 128-key tile.  The bf16
 // arithmetic of the TPU kernel is what mma.sync.m16n8k16 with bf16 operands
@@ -104,46 +150,153 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "tf32_split.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
 
 // ---------------------------------------------------------------------------
-// fp32: FMA tiles
+// fp32: split-TF32 tensor-core tiles
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 256;  // 16 x 16
+constexpr int BQ = 64;  // query rows per block, 16 a warp
+
+// The fp32 kernel's shapes by head dim: keys a walked tile, whether each
+// warp keeps its split Q fragments in registers for the whole walk (D / 8
+// k steps x 8 registers) or reads them from the split Q tile each time, and
+// the blocks an SM it is compiled for.
+template <int D>
+struct FwdCfg;
+template <>
+struct FwdCfg<64> {
+  static constexpr int WALK = 16, BLOCKS = 3;
+  static constexpr bool Q_REGS = true;
+};
+template <>
+struct FwdCfg<128> {
+  static constexpr int WALK = 32, BLOCKS = 1;
+  static constexpr bool Q_REGS = false;
+};
 
 template <int D>
-constexpr size_t smem_floats() {
-  // q [BQ][D+1], k [BK][D+1], v [BK][D], p [BQ][BK+1]
-  return (size_t)BQ * (D + 1) + (size_t)BK * (D + 1) + (size_t)BK * D +
-         (size_t)BQ * (BK + 1);
+constexpr size_t fwd_tf32_smem_bytes() {
+  // q, q small [BQ]; a two-stage ring of (k, k small, v, v small) [WALK]
+  return (2 * BQ + 8 * FwdCfg<D>::WALK) * (size_t)f32_ld<D>() * sizeof(float);
+}
+
+// 2^x by the bare MUFU.EX2 (ex2.approx.ftz, relative error below 2^-22):
+// exp2f adds range fix-ups that no argument here needs (a masked score's
+// argument, <= -5e29 scale log2(e), still gives exactly 0)
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The three products of mma3, each into its own accumulator: c1 +=
+// small·big, c2 += big·small, c3 += big·big.  Three chains of dependent
+// mma.sync where mma3 makes one three times as long.
+__device__ __forceinline__ void mma3_apart(float (&c1)[4], float (&c2)[4],
+                                           float (&c3)[4], const FragA& a,
+                                           const FragB& b) {
+  mma_tf32_1688(c1, a.small, b.big[0], b.big[1]);
+  mma_tf32_1688(c2, a.big, b.small[0], b.small[1]);
+  mma_tf32_1688(c3, a.big, b.big[0], b.big[1]);
+}
+
+// S = Q K^T over the first nj 8-key n-tiles of a split K tile (all of them
+// when FULL) for the warp's 16 query rows: qf holds the split Q fragments
+// when Q_REGS, else they are read from the split Q tile (q_s, qs_s) at
+// q_off, (g, t) of the warp's rows.  k_off is (g, t) of the tile.  The
+// three products of each multiply go to three accumulators, summed at the
+// end as (small·big + big·small) + big·big: an accumulator of one n-tile
+// is a chain of D / 8 products, not 3 D / 8.
+template <int D, bool FULL, int QN>
+__device__ __forceinline__ void qk_tf32(float (&s)[FwdCfg<D>::WALK / 8][4],
+                                        const FragA (&qf)[QN],
+                                        const float* q_s, const float* qs_s,
+                                        int q_off, const float* k_t,
+                                        const float* ks_t, int k_off, int nj) {
+  constexpr int LD = f32_ld<D>(), NJ = FwdCfg<D>::WALK / 8;
+  float s1[NJ][4], s2[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s1[j][e] = s2[j][e] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < D / 8; ++kc) {
+    FragA qa;
+    if constexpr (FwdCfg<D>::Q_REGS) {
+      qa = qf[kc];
+    } else {
+      load_a_split<LD>(qa, q_s, qs_s, q_off + kc * 8);
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (FULL || j < nj) {
+        FragB kf;
+        load_b(kf, k_t, ks_t, k_off + 8 * j * LD + kc * 8, 4);
+        mma3_apart(s1[j], s2[j], s[j], qa, kf);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = (s1[j][e] + s2[j][e]) + s[j][e];
+}
+
+// acc += P V over the first nj 8-key n-tiles (all of them when FULL): P in
+// the S accumulators becomes the A fragment with k slot t as key 2t, so the
+// V fragment reads rows 2t and 2t + 1; v_off is (2t, g) of the tile.
+template <int D, bool FULL>
+__device__ __forceinline__ void pv_tf32(
+    float (&acc)[D / 8][4], const float (&p)[FwdCfg<D>::WALK / 8][4],
+    const float* v_t, const float* vs_t, int v_off, int nj) {
+  constexpr int LD = f32_ld<D>(), NJ = FwdCfg<D>::WALK / 8;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    if (FULL || j < nj) {
+      FragA pa;
+      acc_to_a(pa, p[j]);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        FragB vf;
+        load_b(vf, v_t, vs_t, v_off + 8 * j * LD + 8 * n, LD);
+        mma3(acc[n], pa, vf);
+      }
+    }
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v,
-                 const int* __restrict__ k_lengths, float* __restrict__ o,
-                 float* __restrict__ lse, int H, int Sq, int Sk, float scale,
-                 int causal) {
-  constexpr int DC = D / 16;  // output columns per thread
-  constexpr int D4 = D / 4;
-  extern __shared__ float smem[];
-  float* q_s = smem;                   // [BQ][D+1]
-  float* k_s = q_s + BQ * (D + 1);     // [BK][D+1]
-  float* v_s = k_s + BK * (D + 1);     // [BK][D]   (16-byte aligned)
-  float* p_s = v_s + BK * D;           // [BQ][BK+1]
+__global__ void __launch_bounds__(MMA_THREADS, FwdCfg<D>::BLOCKS)
+flash_fwd_tf32_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const int* __restrict__ k_lengths,
+                      float* __restrict__ o, float* __restrict__ lse, int H,
+                      int Sq, int Sk, float scale, int causal) {
+  using Cfg = FwdCfg<D>;
+  constexpr int LD = f32_ld<D>(), WK = Cfg::WALK, NJ = WK / 8;
+  constexpr int QN = Cfg::Q_REGS ? D / 8 : 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);
+  float* qs_s = q_s + BQ * LD;
+  // stage s of the ring: k, k small, v, v small at ring + (4 s + i) WK LD
+  float* ring = qs_s + BQ * LD;
 
-  const int bh = blockIdx.y;
+  // grid (B * H, query tiles), the last query tile first: under a causal
+  // mask it walks the most keys, so the longest blocks go out first
+  const int bh = blockIdx.x;
   const int b = bh / H;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // exp(scale x) = exp2(sc x)
+  const float sc = scale * 1.44269504f;
 
   const float* qb = q + (size_t)bh * Sq * D;
   const float* kb = k + (size_t)bh * Sk * D;
@@ -153,116 +306,158 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int offset = Sk - Sq;  // bottom-right causal alignment
   int k_end = klen;
   if (causal) k_end = min(k_end, q0 + BQ + offset);
-
-  for (int idx = tid; idx < BQ * D4; idx += THREADS) {
-    const int r = idx / D4, d = (idx % D4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < Sq)
-      x = *reinterpret_cast<const float4*>(qb + (size_t)(q0 + r) * D + d);
-    float* dst = q_s + r * (D + 1) + d;
-    dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
+  const int n_tiles = k_end > 0 ? (k_end + WK - 1) / WK : 0;
+  // this warp's rows row_lo .. row_lo + 15 see every key below w_full and
+  // none at or past w_end
+  const int row_lo = q0 + warp * 16;
+  int w_end = klen, w_full = klen;
+  if (causal) {
+    w_end = min(w_end, row_lo + 16 + offset);
+    w_full = min(w_full, row_lo + 1 + offset);
   }
 
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF / 2;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  if (n_tiles > 0) {
+    copy_tile_f32<D, BQ>(q_s, qb, q0, Sq, tid);
+    copy_tile_f32<D, WK>(ring, kb, 0, klen, tid);
+    copy_tile_f32<D, WK>(ring + 2 * WK * LD, vb, 0, klen, tid);
+    cp_commit();
   }
 
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // q_s written / previous tile fully consumed
-    for (int idx = tid; idx < BK * D4; idx += THREADS) {
-      const int c = idx / D4, d = (idx % D4) * 4;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (k0 + c < klen) {
-        kx = *reinterpret_cast<const float4*>(kb + (size_t)(k0 + c) * D + d);
-        vx = *reinterpret_cast<const float4*>(vb + (size_t)(k0 + c) * D + d);
-      }
-      float* kd = k_s + c * (D + 1) + d;
-      kd[0] = kx.x; kd[1] = kx.y; kd[2] = kx.z; kd[3] = kx.w;
-      *reinterpret_cast<float4*>(v_s + c * D + d) = vx;
-    }
+  // this thread's rows of the warp's 16: row0 (g) and row0 + 8 (g + 8)
+  const int row0 = row_lo + g;
+  float m[2] = {NEG_INF / 2, NEG_INF / 2};  // unscaled: scale * m is the max
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  FragA qf[QN];
+  const int q_off = (warp * 16 + g) * LD + t;  // (g, t) of the warp's rows
+
+  for (int it = 0; it < n_tiles; ++it) {
+    float* k_t = ring + (it & 1) * 4 * WK * LD;
+    float* ks_t = k_t + WK * LD;
+    float* v_t = ks_t + WK * LD;
+    float* vs_t = v_t + WK * LD;
+    // this thread's copies of tile it (and of Q) have landed: split them;
+    // then the whole tile is split, and every warp is done with the stage
+    // tile it + 1 goes to
+    cp_wait_all();
+    if (it == 0) split_tile_f32<D, BQ>(q_s, qs_s, tid);
+    split_tile_f32<D, WK>(k_t, ks_t, tid);
+    split_tile_f32<D, WK>(v_t, vs_t, tid);
     __syncthreads();
+    if (it + 1 < n_tiles) {
+      float* nxt = ring + ((it + 1) & 1) * 4 * WK * LD;
+      copy_tile_f32<D, WK>(nxt, kb, (it + 1) * WK, klen, tid);
+      copy_tile_f32<D, WK>(nxt + 2 * WK * LD, vb, (it + 1) * WK, klen, tid);
+      cp_commit();
+    }
+    if constexpr (Cfg::Q_REGS) {
+      if (it == 0) {
+#pragma unroll
+        for (int kc = 0; kc < QN; ++kc)
+          load_a_split<LD>(qf[kc], q_s, qs_s, q_off + kc * 8);
+      }
+    }
+    const int k0 = it * WK;
+    // 8-key n-tiles of this tile that hold a key one of the warp's rows
+    // sees; the others are fully masked for it (p = 0 exactly)
+    const int nj = min(NJ, max(0, w_end - k0 + 7) / 8);
+    if (nj == 0) continue;  // m, l and acc stay as they are
+    const bool full = nj == NJ;
 
-    float s[4][4];
+    float s[NJ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = q_s[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = k_s[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    const int k_off = g * LD + t;
+    if (full) {
+      qk_tf32<D, true>(s, qf, q_s, qs_s, q_off, k_t, ks_t, k_off, nj);
+    } else {
+      qk_tf32<D, false>(s, qf, q_s, qs_s, q_off, k_t, ks_t, k_off, nj);
     }
 
+    // mask the unscaled scores where an n-tile crosses a row's frontier or
+    // klen (or lies past the warp's last live one) and take the row max.
+    // Element e of n-tile j is query row row0 + 8 (e / 2), key k0 + 8 j +
+    // 2 t + e % 2.
+    float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
-      float rmax = NEG_INF;
+    for (int j = 0; j < NJ; ++j) {
+      if (k0 + 8 * j + 8 > w_full) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        const bool ok = kj < klen && (!causal || kj <= qi + offset);
-        s[i][j] = ok ? s[i][j] * scale : NEG_INF;
-        rmax = fmaxf(rmax, s[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          const int kj = k0 + 8 * j + 2 * t + (e & 1);
+          const bool ok = kj < klen &&
+                          (!causal || kj <= row0 + 8 * (e >> 1) + offset);
+          if (!ok) s[j][e] = NEG_INF;
+        }
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off, 16));
-      const float m_new = fmaxf(m[i], rmax);
-      const float corr = expf(m[i] - m_new);
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);  // masked: exp(<= -5e29) = 0
-        p_s[(ty + 16 * i) * (BK + 1) + tx + 16 * j] = p;
-        rsum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, off, 16);
-      l[i] = l[i] * corr + rsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= corr;
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
     }
-    __syncthreads();  // p_s complete
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pv[4];
+    // the four lanes t = 0..3 of a row hold its columns; with scale > 0,
+    // scale * max S is the max of the scaled scores
+    float corr[2], msc[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = p_s[(ty + 16 * i) * (BK + 1) + c];
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      corr[h] = ex2_approx((m[h] - m_new) * sc);
+      m[h] = m_new;
+      msc[h] = m_new * sc;
+    }
+    // P = exp(scale S - scale m) in the S accumulators (masked: exp2(<=
+    // -5e29 sc) = 0), l the sum of this thread's share
+    float ls[2] = {0.f, 0.f};
 #pragma unroll
-      for (int cc = 0; cc < DC; ++cc) {
-        const float vv = v_s[c * D + tx + 16 * cc];
+    for (int j = 0; j < NJ; ++j) {
+      if (full || j < nj) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(pv[i], vv, acc[i][cc]);
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = ex2_approx(fmaf(s[j][e], sc, -msc[e >> 1]));
+          ls[e >> 1] += s[j][e];
+        }
       }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] = l[h] * corr[h] + ls[h];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][2 * h] *= corr[h];
+        acc[n][2 * h + 1] *= corr[h];
+      }
+    }
+
+    const int v_off = 2 * t * LD + g;
+    if (full) {
+      pv_tf32<D, true>(acc, s, v_t, vs_t, v_off, nj);
+    } else {
+      pv_tf32<D, false>(acc, s, v_t, vs_t, v_off, nj);
     }
   }
 
+  // the row sums over the four lanes
   float* ob = o + (size_t)bh * Sq * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int r = row0 + 8 * h;
     if (r >= Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+    const float denom = fmaxf(l[h], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
-      ob[(size_t)r * D + tx + 16 * c] = acc[i][c] / denom;
-    if (lse != nullptr && tx == 0)  // m, l are equal across the 16 lanes
-      lse[(size_t)bh * Sq + r] = l[i] > 0.f ? m[i] + logf(denom) : -NEG_INF;
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(ob + (size_t)r * D + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * h] / denom, acc[n][2 * h + 1] / denom);
+    if (lse != nullptr && t == 0)
+      lse[(size_t)bh * Sq + r] =
+          l[h] > 0.f ? __fmul_rn(m[h], scale) + logf(denom) : -NEG_INF;
   }
 }
 
@@ -272,8 +467,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 using bf16 = __nv_bfloat16;
 
-constexpr int MQ = 64;             // query rows per block
-constexpr int MMA_THREADS = 128;   // four warps, 16 query rows each
+constexpr int MQ = 64;             // query rows per block, 16 a warp
 constexpr int KT = 128;            // keys a softmax tile: the TPU key block
 constexpr int CHUNKS = KT / 16;    // 16-key chunks a tile
 constexpr unsigned CHUNK_BYTES = 16 * sizeof(bf16);  // a 16-deep k chunk
@@ -282,26 +476,6 @@ template <int D>
 constexpr size_t mma_smem_bytes() {
   // q [MQ], k [KT], v [KT] rows of D + 8 elements
   return (size_t)(MQ + 2 * KT) * (D + 8) * sizeof(bf16);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared, zero-filled (nothing read) when !live
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(live ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most N of this thread's copy groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Four 8x8 bf16 matrices from shared memory; lanes 8i .. 8i + 7 give the
@@ -675,17 +849,19 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // launch
 // ---------------------------------------------------------------------------
 
+// Opts `kernel` into `smem` bytes of dynamic shared memory and launches it
+// on `grid`.  A refused attribute also sets the thread's last error, which
+// is cleared so that it does not surface at a later launch.
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int q_tiles, int BH, int threads, size_t smem,
-           cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
+int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
+           Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) {
-    (void)cudaGetLastError();  // a refused attribute also sets the last error
+    (void)cudaGetLastError();
     return (int)err;
   }
-  const dim3 grid(q_tiles, BH);
-  kernel<<<grid, threads, smem, stream>>>(args...);
+  kernel<<<grid, MMA_THREADS, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -693,17 +869,16 @@ template <int D>
 int launch_d(const float* q, const float* k, const float* v, const int* kl,
              float* o, float* lse, int B, int H, int Sq, int Sk, float scale,
              int causal, cudaStream_t st) {
-  return launch(flash_fwd_kernel<D>, (Sq + BQ - 1) / BQ, B * H, THREADS,
-                smem_floats<D>() * sizeof(float), st, q, k, v, kl, o, lse, H,
-                Sq, Sk, scale, causal);
+  return launch(flash_fwd_tf32_kernel<D>, dim3(B * H, (Sq + BQ - 1) / BQ),
+                fwd_tf32_smem_bytes<D>(), st, q, k, v, kl, o, lse, H, Sq, Sk,
+                scale, causal);
 }
 
 template <int D>
 int launch_d(const bf16* q, const bf16* k, const bf16* v, const int* kl,
              bf16* o, float* lse, int B, int H, int Sq, int Sk, float scale,
              int causal, cudaStream_t st) {
-  return launch(flash_fwd_mma_kernel<D>, (Sq + MQ - 1) / MQ, B * H,
-                MMA_THREADS,
+  return launch(flash_fwd_mma_kernel<D>, dim3((Sq + MQ - 1) / MQ, B * H),
                 mma_smem_bytes<D>(), st, q, k, v, kl, o, lse, H, Sq, Sk,
                 scale, causal);
 }

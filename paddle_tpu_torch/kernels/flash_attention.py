@@ -26,10 +26,10 @@ The bf16 plain versions (:func:`flash_attention_fwd_bf16_reference`,
 and :func:`flash_attention_bwd_reference`, whose roundings are no-ops in
 fp32) round at the same points, so a kernel and its plain version differ
 only where fp32 summation order moves a value across a bf16 rounding
-boundary.  The fp32 backward kernels run their products on the tensor
-cores as three TF32 products of split operands (csrc/flash_bwd.cu), which
-keeps them within fp32's gate of the plain version; the fp32 forward
-stays exact fp32 FMAs.
+boundary.  The fp32 kernels, forward and backward, run their products on
+the tensor cores as three TF32 products of split operands
+(csrc/tf32_split.cuh), which keeps them within fp32's gate of the plain
+versions; only the order of the fp32 sums moves.
 
 As in the JAX module, the forward writes the per-row logsumexp (lse)
 only when a backward will read it: a call with no input that requires a

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Probe of two redesigned kernels on the card: the fp32 flash backward
-(``flash_bwd_dq_f32``, ``flash_bwd_dkv_f32`` of
-paddle_tpu_torch/kernels/csrc/flash_bwd.cu) and ``corpus_scale_f32``
-(csrc/corpus.cu).  Run from the root of a checkout on a host with one
-CUDA card:
+"""Probe of redesigned kernels on the card: the fp32 flash forward
+(``flash_fwd_f32`` of paddle_tpu_torch/kernels/csrc/flash_fwd.cu), the
+fp32 flash backward (``flash_bwd_dq_f32``, ``flash_bwd_dkv_f32`` of
+csrc/flash_bwd.cu) and ``corpus_scale_f32`` (csrc/corpus.cu).  Run from
+the root of a checkout on a host with one CUDA card:
 
-    python3 probe_kernel_variants.py
+    python3 probe_kernel_variants.py [PART ...]
 
+with no PART for every part, or any of ``mma_rate``, ``fwd_variants``,
+``flash_variants``, ``corpus_variants``, ``corpus_balance`` and ``sass``.
 It prints one JSON line per part:
 
 1. ``mma_rate``: the tensor pipe's rate for ``mma.sync.m16n8k8`` with tf32
@@ -30,8 +32,20 @@ It prints one JSON line per part:
    tiles), 64 blocks a matrix (8 tiles each), and [2, 4224, 4096] (8
    tiles for each of 66 blocks), beside x * 2.
 5. ``sass``: the opcode counts of each fp32 instantiation of flash_bwd.cu
-   as it stands (``cuobjdump -sass``), which name the tensor-core
-   instruction and count the split's instructions.
+   and flash_fwd.cu as they stand (``cuobjdump -sass``), which name the
+   tensor-core instruction and count the split's instructions.
+6. ``fwd_variants``: variants of the fp32 forward (``FWD_VARIANTS``: the
+   walked key tile and the blocks an SM, Q's split fragments kept in
+   registers or read from shared memory, S's products in one accumulator
+   or three, the walked tiles split once in shared memory or by each
+   warp, exp2f or the bare ex2.approx, and the planted fault of two TF32
+   products a multiply), built and held to the fp32 gate as in part 2
+   (out and lse against ``flash_attention_fwd_reference``; the fault must
+   fail it), and timed in turns at bench's shape causal and not (with
+   lse), at serving's first prefill shape (B 8, S 128, causal, no lse)
+   and at S 2048 (B 4, causal, with lse); with ``--baseline FILE``,
+   beside the fp32 entry of another flash_fwd.cu (an earlier commit's,
+   unpacked with git archive).
 
 Nothing here is imported by the port or by ``chip_smoke.py``.
 """
@@ -93,6 +107,72 @@ FLASH_VARIANTS = {
     # 16 queries a dkv sub-block
     "dkv_sub16": [cfg64(16, 2)],
 }
+
+FWD64 = ("struct FwdCfg<64> {\n  static constexpr int WALK = 16, BLOCKS = 3;\n"
+         "  static constexpr bool Q_REGS = true;")
+
+
+def fwd64(walk, blocks, q_regs):
+    """An edit of the fp32 forward's head-dim-64 shapes (FwdCfg<64>)."""
+    return (FWD64, f"struct FwdCfg<64> {{\n  static constexpr int WALK = "
+            f"{walk}, BLOCKS = {blocks};\n  static constexpr bool Q_REGS = "
+            f"{'true' if q_regs else 'false'};")
+
+
+# name -> [(old, new), ...] edits of csrc/flash_fwd.cu; as built, head dim
+# 64 walks 16-key tiles, three blocks an SM, Q's split fragments in
+# registers
+FWD_VARIANTS = {
+    "as_built": [],
+    # Q's split A fragments read from the split Q tile at each use
+    "q_smem": [fwd64(16, 3, False)],
+    # 32-key walked tiles, two blocks an SM (104,448 bytes of shared
+    # memory each)
+    "walk32_b2": [fwd64(32, 2, True)],
+    # 64-key walked tiles: 174,080 bytes of shared memory, one block an SM
+    "walk64_b1": [fwd64(64, 1, True)],
+    # 8-key walked tiles, four blocks an SM (at most 128 registers)
+    "walk8_b4": [fwd64(8, 4, False)],
+    # S's three products a multiply into one accumulator (mma3), a chain
+    # three times as long, in place of three (mma3_apart)
+    "s_one_acc": [
+        ("        mma3_apart(s1[j], s2[j], s[j], qa, kf);",
+         "        mma3(s[j], qa, kf);"),
+        ("    for (int e = 0; e < 4; ++e) s[j][e] = (s1[j][e] + s2[j][e]) + "
+         "s[j][e];\n", "    for (int e = 0; e < 4; ++e) ;\n")],
+    # K and V tiles left raw in shared memory, each warp splitting the B
+    # fragments it loads (the ring keeps its size)
+    "split_per_warp": [
+        ("    split_tile_f32<D, WK>(k_t, ks_t, tid);\n"
+         "    split_tile_f32<D, WK>(v_t, vs_t, tid);\n", ""),
+        ("        load_b(kf, k_t, ks_t, k_off + 8 * j * LD + kc * 8, 4);",
+         "        load_b_split(kf, k_t, k_off + 8 * j * LD + kc * 8, 4);"),
+        ("        load_b(vf, v_t, vs_t, v_off + 8 * j * LD + 8 * n, LD);",
+         "        load_b_split(vf, v_t, v_off + 8 * j * LD + 8 * n, LD);"),
+        ("// The three products of mma3, each into its own accumulator",
+         "__device__ __forceinline__ void load_b_split(FragB& f, const "
+         "float* x,\n    int off, int dr) {\n"
+         "  split_tf32(x[off], f.big[0], f.small[0]);\n"
+         "  split_tf32(x[off + dr], f.big[1], f.small[1]);\n}\n\n"
+         "// The three products of mma3, each into its own accumulator")],
+    # exp2 by exp2f (MUFU.EX2 with range fix-ups) in place of ex2_approx
+    "exp2f": [("      corr[h] = ex2_approx((m[h] - m_new) * sc);",
+               "      corr[h] = exp2f((m[h] - m_new) * sc);"),
+              ("          s[j][e] = ex2_approx(fmaf(s[j][e], sc, "
+               "-msc[e >> 1]));",
+               "          s[j][e] = exp2f(fmaf(s[j][e], sc, -msc[e >> 1]));")],
+    # the planted fault: two TF32 products a multiply (B's small part
+    # dropped), which must fail the gate
+    "two_products": [
+        ("  mma_tf32_1688(c, a.small, b.big[0], b.big[1]);\n"
+         "  mma_tf32_1688(c, a.big, b.small[0], b.small[1]);\n",
+         "  mma_tf32_1688(c, a.small, b.big[0], b.big[1]);\n"),
+        ("  mma_tf32_1688(c2, a.big, b.small[0], b.small[1]);\n", "")],
+}
+# variants that must fail the gate
+FWD_FAULTS = ("two_products",)
+SERVE_LENS = [128, 100, 77, 64, 33, 16, 120, 90]
+
 
 def span_edit(text, start, end, new):
     """The edit that replaces text[start marker:end marker] by `new`."""
@@ -227,9 +307,18 @@ def nvcc_all(sources):
     return built
 
 
+def inline_includes(text):
+    """`text` with each #include "<header>" of csrc/ replaced by the
+    header's text, so that an edit can reach it and the variant builds
+    outside csrc/."""
+    return re.sub(r'^#include "([^"]+)"\n',
+                  lambda m: (CSRC / m.group(1)).read_text(), text,
+                  flags=re.MULTILINE)
+
+
 def variant_source(name, edits):
-    """csrc/<name>.cu with `edits` applied."""
-    text = (CSRC / f"{name}.cu").read_text()
+    """csrc/<name>.cu, its csrc/ headers inlined, with `edits` applied."""
+    text = inline_includes((CSRC / f"{name}.cu").read_text())
     for edit in edits:
         old, new = edit(text) if callable(edit) else edit
         if text.count(old) != 1:
@@ -248,7 +337,7 @@ def ptxas_f32(log):
             name = m.group(1)
             continue
         if name and "tf32" in name:
-            short = re.search(r"(flash_bwd_\w+?_kernel)ILi(\d+)", name)
+            short = re.search(r"(flash_\w+?_kernel)ILi(\d+)", name)
             key = f"{short.group(1)}<{short.group(2)}>"
             if "spill" in line:
                 out.setdefault(key, []).append(line.strip())
@@ -269,7 +358,7 @@ def sass_counts(so):
         m = re.search(r"Function : (\w+)", line)
         if m:
             fn = m.group(1)
-            short = re.search(r"(flash_bwd_\w+?_kernel)ILi(\d+)", fn)
+            short = re.search(r"(flash_\w+?_kernel)ILi(\d+)", fn)
             name = (f"{short.group(1)}<{short.group(2)}>"
                     if short and "tf32" in fn else None)
             if name:
@@ -282,26 +371,17 @@ def sass_counts(so):
     return {k: dict(v.most_common(40)) for k, v in counts.items()}
 
 
-def main() -> int:
-    import torch
+def fwd_entry(so):
+    """The fp32 forward entry of a built flash_fwd.cu."""
+    fn = ctypes.CDLL(str(so)).flash_fwd_f32
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
-    if not torch.cuda.is_available():
-        print("probe_kernel_variants: no CUDA device", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    import chip_smoke as cs
-    from paddle_tpu_torch.kernels import corpus as ck
-    from paddle_tpu_torch.kernels import flash_attention as fa
 
-    print(cs.card_line(), flush=True)
-    sources = {f"v_{n}": variant_source("flash_bwd", e)
-               for n, e in FLASH_VARIANTS.items()}
-    sources.update({f"c_{n}": variant_source("corpus", e)
-                    for n, e in CORPUS_VARIANTS.items()})
-    sources["mma_rate"] = MMA_RATE_SRC
-    built = nvcc_all(sources)
-
-    # 1. the tensor pipe's rates
+def part_mma_rate(torch, cs, built):
+    """1. The tensor pipe's rates."""
     lib = ctypes.CDLL(str(built["mma_rate"][0]))
     lib.rate.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                          ctypes.c_int]
@@ -317,8 +397,82 @@ def main() -> int:
         rates[name] = {"ms": ms, "tflop_s": mmas * flop / ms / 1e9}
     emit({"part": "mma_rate", "card": cs.card_line(), "sms": sms,
           "rates": rates})
+    return True
 
-    # 2. the fp32 backward's variants, in turns
+
+def part_fwd_variants(torch, cs, built, baseline):
+    """6. The fp32 forward's variants (and a baseline source's), in
+    turns."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    entries = {n: fwd_entry(built[f"f_{n}"][0]) for n in FWD_VARIANTS}
+    rows = {n: {"ptxas": ptxas_f32(built[f"f_{n}"][1])}
+            for n in FWD_VARIANTS}
+    if baseline:
+        entries["baseline"] = fwd_entry(built["f_baseline"][0])
+        rows["baseline"] = {"source": str(baseline)}
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(19)
+    stream = torch.cuda.current_stream().cuda_stream
+    ok = True
+    shapes = {"causal": (LENS, 256, True, True),
+              "noncausal": (LENS, 256, False, True),
+              "serving_no_lse": (SERVE_LENS, 128, True, False),
+              "causal_2048": ([2048] * 4, 2048, True, True)}
+    for tag, (lens, S, causal, with_lse) in shapes.items():
+        B, H, D = len(lens), 8, 64
+        q, k, v = (torch.randn(B, H, S, D, generator=g, device=dev)
+                   for _ in range(3))
+        kl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        scale = D ** -0.5
+        want, want_lse = fa.flash_attention_fwd_reference(q, k, v, causal,
+                                                          scale, kl)
+        out = torch.empty_like(q)
+        lse = torch.empty(B, H, S, device=dev)
+
+        def run(n):
+            err = entries[n](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             kl.data_ptr(), out.data_ptr(),
+                             lse.data_ptr() if with_lse else None, B, H, S,
+                             S, D, scale, int(causal), stream)
+            if err:
+                raise RuntimeError(f"{n} {tag}: cudaError_t {err}")
+
+        live = want_lse < 1e29
+        for n in entries:
+            run(n)
+            torch.cuda.synchronize()
+            errs = {"out": float((out - want).abs().max()) / max(
+                1.0, float(want.abs().max()))}
+            if with_lse:
+                errs["lse"] = float((lse[live] - want_lse[live]).abs().max()
+                                    ) / max(1.0, float(want_lse[live].abs()
+                                                       .max()))
+            passed = all(e <= TOL for e in errs.values())
+            rows[n][f"{tag}_err_rel"] = errs
+            rows[n][f"{tag}_ok"] = passed
+            ok &= passed != (n in FWD_FAULTS)
+        order = list(entries) + list(entries)[::-1]
+        times = collections.defaultdict(list)
+        for n in order:
+            times[n].append(cs.device_ms(torch, lambda: run(n)))
+        for n in entries:
+            rows[n][f"{tag}_ms"] = times[n]
+        del q, k, v, out, lse
+    emit({"part": "fwd_variants", "card": cs.card_line(),
+          "shapes": {t: {"B": len(x[0]), "H": 8, "S": x[1], "D": 64,
+                         "causal": x[2], "lse": x[3], "k_lengths": x[0]}
+                     for t, x in shapes.items()},
+          "method": "CUDA events, median of 30 after 5 warm-up calls, "
+          "each variant twice (list forward, then backward)",
+          "rows": rows})
+    return ok
+
+
+def part_flash_variants(torch, cs, built):
+    """2. The fp32 backward's variants, in turns."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
     entries = {}
     for n in FLASH_VARIANTS:
         lib = ctypes.CDLL(str(built[f"v_{n}"][0]))
@@ -387,20 +541,30 @@ def main() -> int:
           "method": "CUDA events, median of 30 after 5 warm-up calls, "
           "each variant twice (list forward, then backward)",
           "rows": rows})
+    return all(r["causal_ok"] and r["noncausal_ok"] for r in rows.values())
 
-    ok = all(r["causal_ok"] and r["noncausal_ok"] for r in rows.values())
 
-    # 3. corpus_scale's variants, in turns
-    scale_fns = {}
-    for n in CORPUS_VARIANTS:
-        fn = ctypes.CDLL(str(built[f"c_{n}"][0])).corpus_scale_f32
-        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        scale_fns[n] = fn
+def scale_entry(so):
+    fn = ctypes.CDLL(str(so)).corpus_scale_f32
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def part_corpus_variants(torch, cs, built):
+    """3. corpus_scale's variants, in turns."""
+    from paddle_tpu_torch.kernels import corpus as ck
+
+    scale_fns = {n: scale_entry(built[f"c_{n}"][0]) for n in CORPUS_VARIANTS}
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
     x = torch.randn(*SCALE_SHAPE, generator=g, device=dev)
     y = torch.empty_like(x)
     crow = {n: {} for n in CORPUS_VARIANTS}
+    ok = True
     for tile in (8, 14):
         smem = ck.corpus_scale_smem_bytes(x.shape, x.dtype, tile)
         _, grid_y = ck.corpus_scale_grid(x.shape, tile, sms)
@@ -429,13 +593,22 @@ def main() -> int:
           "shape": list(SCALE_SHAPE), "method": "CUDA events, median of 30 "
           "after 5 warm-up calls, each variant twice (list forward, then "
           "backward), x * 2 after each", "rows": crow})
+    return ok
 
-    # 4. corpus_scale as built against the balance of its walk: the grid of
-    # corpus_scale_grid (66 blocks a matrix, 7 or 8 tiles each at tile_rows
-    # 8), 64 blocks a matrix (8 tiles each), and 4224 rows (528 tiles a
-    # matrix, 8 for each of the 66 blocks), each beside x * 2
-    balance = {}
-    fn = scale_fns["as_built"]
+
+def part_corpus_balance(torch, cs, built):
+    """4. corpus_scale as built against the balance of its walk: the grid
+    of corpus_scale_grid (66 blocks a matrix, 7 or 8 tiles each at
+    tile_rows 8), 64 blocks a matrix (8 tiles each), and 4224 rows (528
+    tiles a matrix, 8 for each of the 66 blocks), each beside x * 2."""
+    from paddle_tpu_torch.kernels import corpus as ck
+
+    fn = scale_entry(built["c_as_built"][0])
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(29)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    balance, ok = {}, True
     for name, rows_n, grid_y in (("grid_66", 4096, None),
                                  ("grid_64", 4096, 64),
                                  ("rows_4224_grid_66", 4224, None)):
@@ -460,11 +633,68 @@ def main() -> int:
         del xb, yb
     emit({"part": "corpus_balance", "card": cs.card_line(),
           "tile_rows": 8, "rows": balance})
+    return ok
 
-    # 5. SASS of flash_bwd.cu as it stands
-    emit({"part": "sass", "counts": sass_counts(built["v_as_built"][0])})
+
+def part_sass(torch, cs, built):
+    """5. SASS of flash_bwd.cu and flash_fwd.cu as they stand."""
+    emit({"part": "sass", "counts": {
+        **sass_counts(built["v_as_built"][0]),
+        **sass_counts(built["f_as_built"][0])}})
+    return True
+
+
+# part -> (its function, the prefixes of the sources it builds)
+PARTS = {"mma_rate": (part_mma_rate, ("mma_rate",)),
+         "fwd_variants": (part_fwd_variants, ("f_",)),
+         "flash_variants": (part_flash_variants, ("v_",)),
+         "corpus_variants": (part_corpus_variants, ("c_",)),
+         "corpus_balance": (part_corpus_balance, ("c_as_built",)),
+         "sass": (part_sass, ("v_as_built", "f_as_built"))}
+
+
+def main(argv) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("parts", nargs="*", help="parts to run, of "
+                    f"{', '.join(PARTS)} (default: all)")
+    ap.add_argument("--baseline", type=Path,
+                    help="another flash_fwd.cu whose fp32 entry "
+                    "fwd_variants times beside the variants")
+    args = ap.parse_args(argv)
+    parts = args.parts or list(PARTS)
+    unknown = [p for p in parts if p not in PARTS]
+    if unknown:
+        ap.error(f"unknown parts {unknown}")
+    if not torch.cuda.is_available():
+        print("probe_kernel_variants: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import chip_smoke as cs
+
+    print(cs.card_line(), flush=True)
+    sources = {f"v_{n}": variant_source("flash_bwd", e)
+               for n, e in FLASH_VARIANTS.items()}
+    sources.update({f"f_{n}": variant_source("flash_fwd", e)
+                    for n, e in FWD_VARIANTS.items()})
+    sources.update({f"c_{n}": variant_source("corpus", e)
+                    for n, e in CORPUS_VARIANTS.items()})
+    sources["mma_rate"] = MMA_RATE_SRC
+    if args.baseline:
+        sources["f_baseline"] = inline_includes(args.baseline.read_text())
+    wanted = tuple(p for part in parts for p in PARTS[part][1])
+    built = nvcc_all({n: t for n, t in sources.items()
+                      if n.startswith(wanted)})
+    ok = True
+    for part in parts:
+        fn = PARTS[part][0]
+        ok &= (fn(torch, cs, built, args.baseline)
+               if part == "fwd_variants" else fn(torch, cs, built))
     return 0 if ok else 1
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -10,9 +10,9 @@ and P and dS, which the kernels build in registers; the five products are
 S = Q K^T, dP = dO V^T, dQ = dS K, dK = dS^T Q and dV = P^T dO.
 
 ``split_model`` below is a plain model of exactly that arithmetic, written
-here and nowhere else.  It is held against the port's
-``flash_attention_bwd_reference`` and against the JAX Pallas dq / dkv
-kernels in interpret mode (``jax.vjp`` through
+here and nowhere else, over the split of tests/tf32_split.py.  It is held
+against the port's ``flash_attention_bwd_reference`` and against the JAX
+Pallas dq / dkv kernels in interpret mode (``jax.vjp`` through
 ``flash_attention(force="interpret")``, as tests/test_torch_kernels.py
 reaches them) over head dims 64 and 128, causal and not, a klen = 0 row,
 S off the 64-row tile and more keys than queries, under the fp32 gate of
@@ -38,51 +38,8 @@ import jax  # noqa: E402
 jflash = importlib.import_module("paddle_tpu.kernels.flash_attention")
 
 from paddle_tpu_torch.kernels import flash_attention as tflash  # noqa: E402
-
-TOL = 1e-4
-H = 2
-
-# (B, Sq, Sk, D, causal, k_lengths): the training head shape first, then
-# the edges: a klen = 0 row, S off the 64-row tile, head dim 128, more
-# keys than queries (causal and not)
-CASES = {
-    "causal_train_256": (2, 256, 256, 64, True, [256, 200]),
-    "noncausal_train_256": (1, 256, 256, 64, False, [180]),
-    "noncausal_ragged_96": (1, 96, 96, 64, False, [50]),
-    "masked_row_64": (2, 64, 64, 64, False, [64, 0]),
-    "causal_d128_130_zero_len": (2, 130, 130, 128, True, [0, 77]),
-    "noncausal_d128_ragged_70": (2, 70, 70, 128, False, [70, 9]),
-    "causal_cached_keys_20x150": (2, 20, 150, 64, True, [150, 61]),
-    "noncausal_cached_keys_d128_40x100": (1, 40, 100, 128, False, [100]),
-}
-# the training head shape, where one TF32 pass must fail the gate
-FAULT_CASES = ("causal_train_256", "noncausal_train_256")
-
-
-def tf32(x):
-    """x rounded to tf32: to nearest, ties away from zero, at 10 mantissa
-    bits, on the int32 view (the magnitude sits below the sign bit)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def split(x):
-    """(big, small): x = big + small + a rest below 2^-22 |x|."""
-    big = tf32(x)
-    return big, tf32(x - big)
-
-
-def mm3(a, b):
-    """a @ b as the kernels' three TF32 products, small terms first."""
-    ab, as_ = split(a)
-    bb, bs = split(b)
-    return (torch.matmul(as_, bb) + torch.matmul(ab, bs)) + torch.matmul(
-        ab, bb)
-
-
-def mm1(a, b):
-    """The planted fault: one TF32 product, operands rounded once."""
-    return torch.matmul(tf32(a), tf32(b))
+from tf32_split import (CASES, FAULT_CASES, H, gate, inputs,  # noqa: E402
+                        mm1, mm3, split, tf32)
 
 
 def split_model(q, k, v, dout, lse, dvec, k_lengths, causal, scale, mm=mm3):
@@ -100,24 +57,13 @@ def split_model(q, k, v, dout, lse, dvec, k_lengths, causal, scale, mm=mm3):
             mm(p.transpose(-1, -2).contiguous(), dout))
 
 
-def _gate(got, want):
-    """(max abs err, bound, ok) under the fp32 gate."""
-    got = got.numpy() if isinstance(got, torch.Tensor) else got
-    want = np.asarray(want, np.float32)
-    assert got.shape == want.shape
-    err = float(np.abs(got - want).max())
-    bound = TOL * max(1.0, float(np.abs(want).max()))
-    return err, bound, err <= bound
-
-
 @pytest.fixture(scope="module", params=sorted(CASES))
 def case(request):
     """One case: inputs made with numpy, the port's plain forward and
     backward, and the JAX Pallas dq / dkv kernels in interpret mode."""
     B, Sq, Sk, D, causal, lens = CASES[request.param]
-    rng = np.random.RandomState(sorted(CASES).index(request.param))
-    q, k, v, do = (rng.standard_normal((B, H, S, D)).astype(np.float32)
-                   for S in (Sq, Sk, Sk, Sq))
+    q, k, v, do = inputs(sorted(CASES).index(request.param), B, Sq, Sk, D,
+                         n=4)
     scale = D ** -0.5
     kl = np.asarray(lens, np.int32)
     _, vjp = jax.vjp(lambda a, b, c: jflash.flash_attention(
@@ -160,7 +106,7 @@ def test_split_model_matches_plain_and_interpret(case):
                                     case["jax"]):
         assert g.dtype == torch.float32
         for ref in (plain, want):
-            err, bound, ok = _gate(g, ref)
+            err, bound, ok = gate(g, ref)
             assert ok, (case["name"], name, err, bound)
     dq, dk, dv = got
     for b, n in enumerate(case["lens"]):
@@ -172,7 +118,7 @@ def test_split_model_matches_plain_and_interpret(case):
 
 
 @pytest.mark.parametrize("case", FAULT_CASES, indirect=True)
-def test_one_tf32_pass_fails_the_gate(case):
+def test_one_tf32_pass_fails_thegate(case):
     """One TF32 product a multiply, at the training head shape: each of
     dQ, dK and dV must fail the gate against both references, while the
     three-product model (above) passes it."""
@@ -180,7 +126,7 @@ def test_one_tf32_pass_fails_the_gate(case):
     for name, g, plain, want in zip(("dq", "dk", "dv"), got, case["plain"],
                                     case["jax"]):
         for ref in (plain, want):
-            err, bound, ok = _gate(g, ref)
+            err, bound, ok = gate(g, ref)
             assert not ok, (case["name"], name, err, bound)
 
 

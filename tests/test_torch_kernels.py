@@ -131,6 +131,27 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
         _build.nvcc()
 
 
+def test_library_hash_covers_included_headers(monkeypatch, tmp_path):
+    """A library's name hashes its source and the csrc/ headers it
+    includes, transitively: editing a header rebuilds every source that
+    includes it and no other, so no stale library is loaded."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\nint a;\n')
+    (tmp_path / "b.cu").write_text("#include <cstdint>\nint b;\n")
+    (tmp_path / "h.cuh").write_text('#include "g.cuh"\nint h;\n')
+    (tmp_path / "g.cuh").write_text("int g;\n")
+    before = {n: _build._target(n) for n in ("a", "b")}
+    (tmp_path / "g.cuh").write_text("int g2;\n")
+    after = {n: _build._target(n) for n in ("a", "b")}
+    assert after["a"] != before["a"] and after["b"] == before["b"]
+    assert before["a"].name.startswith("liba-")
+    # the actual sources: both flash sources include the split helpers
+    monkeypatch.undo()
+    for name in ("flash_fwd", "flash_bwd"):
+        data = _build._source_bytes(_build.CSRC / f"{name}.cu")
+        assert (_build.CSRC / "tf32_split.cuh").read_bytes() in data
+
+
 def test_launch_error_codes_raise():
     _build.check(0, "flash_fwd")
     with pytest.raises(_build.KernelLaunchError, match="cudaError_t 9"):
