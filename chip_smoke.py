@@ -227,6 +227,28 @@ prints no final result line):
    distance of a CPU run on the image scaled by 1 + 2^-20 (in bf16 the
    step is chaotic: that perturbation alone moves the gradients by about
    120% in norm).
+5a. The training paths through ``Executor.run_steps``, each step a
+   replay of a captured CUDA graph (cuDNN deterministic): bench's
+   Transformer under keep (dropout 0.1; bf16 flash kernels),
+   Transformer-base in fp32 (fp32 flash kernels) and ResNet-50's conv
+   tier under keep (conv_stats_bf16, bn_epilogue_bf16), at the widths,
+   batches and optimizers above, two batches staged on the card once.
+   From one startup state: two eager arms of ten ``run`` steps, and
+   ``run_steps(steps=10)``, whose final persistables and last loss must
+   lie no farther from the first eager arm's than the second eager arm
+   does (bit-equal where that is 0); the counters over that call, zeroed
+   just before it, must read ten times the eager step's launches in the
+   path's dtype and none in the other, and a profiled replayed call of
+   two steps (the second of two in one trace: the profiler drops records
+   over ten steps, and of a trace's first replayed graph) must show twice
+   them by kernel name; ``mode="flat"`` at two steps bit-equal to
+   ``"scan"``.  Printed: eager and run_steps step medians (three timed
+   calls), the busy share of a profiled eager step and of a profiled
+   call, the warm-up and capture seconds, peak memory of both arms, and
+   the bytes of every persistable and the profiled call's copies (the
+   captured step ends by copying each new state into its buffer).  Then a
+   program with ``assign_value`` through run_steps: its
+   fetch equal to the CPU executor's.
 5b. The program linter's kernel tier (``paddle_tpu_torch.analysis``) and
    the two corpus kernels (``csrc/corpus.cu``, kernel rows 8 and 9).
    ``corpus_add`` bit-equal to its plain version on [512, 128] + a [512]
@@ -272,7 +294,8 @@ prints no final result line):
    the bf16 entries of rows 4a (serving shape and a 4080-token context), 4b
    (Sq 5), 4d and 4e (34 live pages) at the fp32 rows' shapes, bytes at
    2-byte pages, SDPA in bf16; rows 8 and 9 at the corpus shapes
-   (corpus_add on [512, 128], library call x + lse[:, None]; corpus_scale
+   (corpus_add on [512, 128], library calls x + lse[:, None] and x + b on
+   the materialised b; corpus_scale
    over [2, 4096, 4096] at tile_rows 8 and 14, library call x * 2), bounds
    from bytes; row 8 beside an empty kernel on its grid, launched and timed
    the same way (its launch floor), and again at [524288, 128], where its
@@ -4279,6 +4302,388 @@ def phase_conv_timing_bf16(torch, conv_err, launches):
     return [first, epi]
 
 
+# -- phase 5a: the training paths through Executor.run_steps ------------------
+
+RUN_STEPS_K = 10       # steps a run_steps call, and steps an eager arm
+FLAT_K = 2             # steps of the flat-against-scan check
+RUN_STEPS_CALLS = 3    # timed run_steps calls after the gated one
+PAD_CYCLES = 20_000_000  # a device sleep of about 10 ms marks a trace
+# path -> (AMP keep_output, or None for fp32; the kernels' dtype)
+RUN_STEPS_PATHS = {"transformer_keep": (True, "bfloat16"),
+                   "transformer_fp32": (None, "float32"),
+                   "resnet_keep": (True, "bfloat16")}
+# a kernel wrapper's launches as the profiler names them: the flash
+# kernels one each; conv_stats by its main kernel (its two partial-sum
+# reductions are not counted), bn_epilogue by either of its kernels
+PROFILED_LAUNCHES = {"flash_fwd": ("flash_fwd_",),
+                     "flash_bwd_dq": ("flash_bwd_dq_",),
+                     "flash_bwd_dkv": ("flash_bwd_dkv_",),
+                     "conv_stats": ("conv_stats_bf16_kernel",
+                                    "conv_stats_bf16_rows_kernel",
+                                    "conv_stats_f32_kernel"),
+                     "bn_epilogue": ("bn_epilogue",)}
+
+
+def _run_steps_path(fluid, name):
+    """(main, startup, spec, batch size, counts by dtype, launches a
+    step) of one run_steps path: bench's Transformer, Transformer-base
+    fp32 or ResNet-50's conv tier, as the earlier phases build them."""
+    from paddle_tpu_torch.kernels import conv_epilogue as ce
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    if name == "resnet_keep":
+        main, startup, spec, _ = build_resnet(fluid, form="conv")
+        return (main, startup, spec, RESNET_BATCH,
+                lambda: _conv_counts_by_dtype(ce), 53)
+    main, startup, spec, _ = (build_bench_transformer(fluid)
+                              if name == "transformer_keep"
+                              else build_training(fluid))
+    return (main, startup, spec, TRAIN_BATCH,
+            lambda: _flash_counts_by_dtype(fa),
+            3 * spec.extras["config"].n_layer)
+
+
+def _state_on_host(startup, scope):
+    """{name: a copy in host memory} of every persistable (kept off the
+    card, so that the arms' peak memory holds no comparison copies)."""
+    return {n: scope.find_var(n).detach().cpu()
+            for n, v in startup.desc.block(0).vars.items() if v.persistable}
+
+
+def _state_distance(torch, got, want):
+    """(max |got - want| over every persistable, names not bit-equal)."""
+    worst, differ = 0.0, []
+    for n, w in want.items():
+        if not torch.equal(got[n], w):
+            differ.append(n)
+            worst = max(worst, float((got[n].double() - w.double())
+                                     .abs().max()))
+    return worst, differ
+
+
+def _profiled(torch, fn, marks=PROFILED_LAUNCHES):
+    """fn() under torch.profiler: wall s, device busy s, launches by
+    PROFILED_LAUNCHES from the kernel names, device ms by kind and the
+    number of device records."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in events) / 1e6
+    if not busy_s:
+        raise AssertionError("the profiler saw no device time")
+    by_kind = {}
+    for e in events:
+        kind = next((k for k, ms in _TRAIN_KINDS[:2] + _KINDS
+                     if any(m in e.key for m in ms)), "other")
+        by_kind[kind] = (by_kind.get(kind, 0.0)
+                         + e.self_device_time_total / 1e3)
+    return {"wall_s": wall, "busy_s": busy_s,
+            "launches": {k: sum(e.count for e in events
+                                if any(m in e.key for m in ms))
+                         for k, ms in marks.items()},
+            "device_ms_by_kind": by_kind,
+            "device_records": sum(e.count for e in events)}
+
+
+def _second_call_launches(torch, fn, between, marks=PROFILED_LAUNCHES):
+    """fn() twice in one torch.profiler trace, ``between()`` and a device
+    sleep between them: the second call's launches by PROFILED_LAUNCHES
+    from the kernel names (kernels that start after the sleep's), its
+    device records, and the trace's first 24 kernel names.  Late in the
+    script a trace lost up to 21 of the first kernel records of its first
+    replayed graph (the first call's here), on an H100."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        between()
+        torch.cuda._sleep(PAD_CYCLES)
+        fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    marker = [e.time_range.start for e in kernels if "spin_kernel" in e.name]
+    if len(marker) != 1:
+        raise AssertionError(f"the trace holds {len(marker)} device sleeps, "
+                             "want 1")
+    second = [e.name for e in kernels if e.time_range.start > marker[0]]
+    return {"launches": {k: sum(any(m in n for m in ms) for n in second)
+                         for k, ms in marks.items()},
+            "device_records": len(second),
+            "trace_head": [e.name[:60] for e in kernels[:24]]}
+
+
+def _assign_value_on_card(torch, np, fluid):
+    """A tiny program whose constant comes from assign_value, through
+    run_steps on the card: its fetch equal to the CPU executor's."""
+    from paddle_tpu_torch.core.proto import DataType
+    from paddle_tpu_torch.layer_helper import LayerHelper
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", [4], dtype="float32")
+        helper = LayerHelper("assign_value")
+        c = helper.create_variable_for_type_inference(DataType.FP32)
+        helper.append_op(type="assign_value", outputs={"Out": [c]},
+                         attrs={"shape": [4], "dtype": int(DataType.FP32),
+                                "fp32_values": [0.5, -1.25, 2.0, 3.75]})
+        out = fluid.layers.mean(fluid.layers.elementwise_add(x, c))
+    rng = np.random.default_rng(SEED + 13)
+    feeds = [{"x": rng.standard_normal((2, 4)).astype(np.float32)}
+             for _ in range(2)]
+    got, want = [
+        exe.run_steps(main, feed_list=feeds, fetch_list=[out], steps=3,
+                      scope=fluid.Scope())[0]
+        for exe in (fluid.Executor(), fluid.Executor(fluid.CPUPlace()))]
+    if not np.array_equal(got, want):
+        raise AssertionError(f"assign_value through run_steps: {got} on "
+                             f"the card, {want} on the CPU")
+    return {"fetch": got.tolist(), "cpu": want.tolist()}
+
+
+def phase_run_steps_training(torch, np, fluid):
+    """The three training paths through ``Executor.run_steps`` on the
+    card: bench's Transformer under keep (dropout 0.1, the bf16 flash
+    kernels), Transformer-base in fp32 (the fp32 flash kernels) and
+    ResNet-50's conv tier under keep (conv_stats_bf16, bn_epilogue_bf16),
+    at the earlier phases' widths, batches and optimizers, with cuDNN
+    deterministic.  Per path, from one startup state and two batches
+    (seeds SEED and SEED + 1) staged on the card once: two eager arms of
+    RUN_STEPS_K ``run`` steps, then ``run_steps(steps=RUN_STEPS_K)``
+    (mode scan: one step captured and replayed).  The replay's final
+    persistables and last loss must lie no farther from the first eager
+    arm's than the second eager arm does (bit-equal where that is 0); the
+    counters, zeroed just before the call, must read RUN_STEPS_K times the
+    eager step's launches in the path's dtype and none in the other.  A
+    profiled replayed call of FLAT_K steps (the same one-step graph,
+    captured anew) must show FLAT_K times them by kernel name, and the
+    counters the same: the second of two such calls in one trace, since
+    the profiler drops records of graph kernels, more over a long call,
+    and late in the script the first records of a trace's first
+    replayed graph.  Then
+    three timed calls (step time = call time / RUN_STEPS_K), a profiled
+    ten-step call (busy share, device time by kind), the capture and the
+    warm-up, peak memory of both arms, the bytes of every
+    persistable beside the profiled call's copies (the captured step ends
+    by copying each new state into its buffer), and flat against
+    scan at FLAT_K steps, bit-equal.  Last, assign_value through
+    run_steps."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    paths, launches = {}, {}
+    try:
+        for name, (keep, dtype) in RUN_STEPS_PATHS.items():
+            paths[name], launches[name] = _run_steps_one(
+                torch, np, fluid, name, keep, dtype)
+            torch.cuda.empty_cache()
+        assign = _assign_value_on_card(torch, np, fluid)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    emit({"phase": "run_steps_training", "card": card_line(),
+          "steps_a_call": RUN_STEPS_K, "paths": paths,
+          "assign_value": assign})
+    return launches
+
+
+def _run_steps_one(torch, np, fluid, name, keep, dtype):
+    other = "float32" if dtype == "bfloat16" else "bfloat16"
+    main, startup, spec, batch, counts, per_step = _run_steps_path(fluid,
+                                                                   name)
+    dev = torch.device("cuda")
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = _persistables(startup, scope)
+    del scope
+    feeds = [{k: torch.from_numpy(v).to(dev) for k, v in
+              spec.synthetic_batch(batch, seed=s).items()}
+             for s in (SEED, SEED + 1)]
+
+    def loaded():
+        scope = fluid.Scope()
+        exe.load_state(init, scope)
+        return scope
+
+    def reset():
+        from paddle_tpu_torch.kernels import conv_epilogue as ce
+        from paddle_tpu_torch.kernels import flash_attention as fa
+
+        fa.reset_launches()
+        ce.reset_launches()
+
+    if keep is not None:
+        fluid.enable_amp("bfloat16", keep_output=keep)
+    try:
+        # two eager arms
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eager, step_s = [], []
+        for _ in range(2):
+            scope = loaded()
+            reset()
+            for i in range(RUN_STEPS_K):
+                t0 = time.perf_counter()
+                loss, = exe.run(main, feed=feeds[i % 2],
+                                fetch_list=[spec.loss], scope=scope)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+            eager_counts = counts()
+            eager.append((float(loss.reshape(-1)[0]),
+                          _state_on_host(startup, scope)))
+        eager_peak = torch.cuda.max_memory_allocated() / 2**30
+        eager_prof = _profiled(
+            torch, lambda: exe.run(main, feed=feeds[0],
+                                   fetch_list=[spec.loss], scope=scope))
+        del scope
+        # run_steps: captured on the first call, then replayed
+        rexe, scope = fluid.Executor(), loaded()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        loss, = rexe.run_steps(main, feed_list=feeds,
+                               fetch_list=[spec.loss], steps=RUN_STEPS_K,
+                               scope=scope)
+        torch.cuda.synchronize()
+        first_call_s = time.perf_counter() - t0
+        got_counts = counts()
+        replay = (float(loss.reshape(-1)[0]),
+                  _state_on_host(startup, scope))
+        graph_peak = torch.cuda.max_memory_allocated() / 2**30
+        call_s = []
+        for _ in range(RUN_STEPS_CALLS):
+            t0 = time.perf_counter()
+            rexe.run_steps(main, feed_list=feeds, fetch_list=[spec.loss],
+                           steps=RUN_STEPS_K, scope=scope)
+            torch.cuda.synchronize()
+            call_s.append(time.perf_counter() - t0)
+        long_prof = _profiled(
+            torch, lambda: rexe.run_steps(
+                main, feed_list=feeds, fetch_list=[spec.loss],
+                steps=RUN_STEPS_K, scope=scope))
+        capture = dict(rexe.last_capture)
+        copy_bytes = 2 * sum(t.numel() * t.element_size()
+                             for t in replay[1].values())
+        del rexe, scope
+        # flat against scan, FLAT_K steps each
+        flat = {}
+        for mode in ("scan", "flat"):
+            fexe, fscope = fluid.Executor(), loaded()
+            fl, = fexe.run_steps(main, feed_list=feeds,
+                                 fetch_list=[spec.loss], steps=FLAT_K,
+                                 scope=fscope, mode=mode)
+            flat[mode] = (float(fl.reshape(-1)[0]),
+                          _state_on_host(startup, fscope))
+            if mode == "scan":  # the same one-step graph, replayed
+                prof = _second_call_launches(torch, lambda: fexe.run_steps(
+                    main, feed_list=feeds, fetch_list=[spec.loss],
+                    steps=FLAT_K, scope=fscope), reset)
+                prof_counts = counts()
+            del fexe, fscope
+    finally:
+        if keep is not None:
+            fluid.disable_amp()
+    eager_vs_eager = _state_distance(torch, eager[1][1], eager[0][1])
+    replay_vs_eager = _state_distance(torch, replay[1], eager[0][1])
+    replay_vs_eager_2 = _state_distance(torch, replay[1], eager[1][1])
+    flat_vs_scan = _state_distance(torch, flat["flat"][1], flat["scan"][1])
+    losses = {"eager_1": eager[0][0], "eager_2": eager[1][0],
+              "run_steps": replay[0]}
+    loss_ee = abs(eager[1][0] - eager[0][0])
+    loss_re = abs(replay[0] - eager[0][0])
+    want = {k: {dtype: RUN_STEPS_K * per_step, other: 0}
+            for k in eager_counts}
+    want_profiled = {**dict.fromkeys(PROFILED_LAUNCHES, 0),
+                     **{k: FLAT_K * per_step for k in eager_counts}}
+    wall, busy = long_prof["wall_s"], long_prof["busy_s"]
+    kinds = long_prof["device_ms_by_kind"]
+    step_med = statistics.median(step_s)
+    rs_step = statistics.median(call_s) / RUN_STEPS_K
+    out = {
+        "enable_amp": None if keep is None else {"dtype": "bfloat16",
+                                                 "keep_output": keep},
+        "batch": batch, "main_ops": len(main.desc.block(0).ops),
+        "losses": losses,
+        "eager_vs_eager": {"max_abs": eager_vs_eager[0],
+                           "not_bit_equal": len(eager_vs_eager[1]),
+                           "loss": loss_ee},
+        "run_steps_vs_eager": {"max_abs": replay_vs_eager[0],
+                               "not_bit_equal": len(replay_vs_eager[1]),
+                               "loss": loss_re,
+                               "against_eager_2_max_abs":
+                                   replay_vs_eager_2[0],
+                               "first_names": replay_vs_eager[1][:5]},
+        "flat_vs_scan": {"steps": FLAT_K, "max_abs": flat_vs_scan[0],
+                         "not_bit_equal": len(flat_vs_scan[1]),
+                         "losses": [flat["scan"][0], flat["flat"][0]]},
+        "launches_eager_arm": eager_counts, "launches": got_counts,
+        "profiled_replayed_call": {
+            "steps": FLAT_K, "launches": prof["launches"],
+            "counters": prof_counts, "device_records":
+                prof["device_records"], "trace_head": prof["trace_head"]},
+        "eager_step_ms_median": 1e3 * step_med, "eager_step_s": step_s,
+        "run_steps_call_s": call_s, "run_steps_step_ms_median":
+            1e3 * rs_step,
+        "first_call_s": first_call_s, "capture": capture,
+        "eager_profiled_step": {
+            "wall_s": eager_prof["wall_s"], "busy_s": eager_prof["busy_s"],
+            "busy_share": eager_prof["busy_s"] / step_med,
+            "device_ms_by_kind": eager_prof["device_ms_by_kind"]},
+        "run_steps_profiled_call": {
+            "steps": RUN_STEPS_K, "wall_s": wall, "busy_s": busy,
+            "launches": long_prof["launches"],
+            "device_records": long_prof["device_records"],
+            "device_records_two_step_call_scaled":
+                RUN_STEPS_K // FLAT_K * prof["device_records"],
+            "busy_share": busy / wall,
+            "busy_ms_a_step": 1e3 * busy / RUN_STEPS_K,
+            "busy_share_of_unprofiled_step":
+                busy / RUN_STEPS_K / rs_step,
+            "device_ms_by_kind": kinds},
+        "peak_alloc_gib": {"eager": eager_peak, "run_steps": graph_peak},
+        "state_copy": {"bytes": copy_bytes,
+                       "bound_ms": 1e3 * copy_bytes / HBM_BYTES_PER_S,
+                       "memcpy_ms_a_step": kinds.get("memcpy", 0.0)
+                       / RUN_STEPS_K}}
+    emit({"phase": "run_steps_path", "path": name, **out})
+    if eager_counts != {k: {dtype: RUN_STEPS_K * per_step, other: 0}
+                        for k in eager_counts}:
+        raise AssertionError(f"{name}: eager launches {eager_counts}, want "
+                             f"{per_step} a step in {dtype}")
+    if got_counts != want:
+        raise AssertionError(f"{name}: run_steps launches {got_counts} != "
+                             f"{want}")
+    if (prof["launches"] != want_profiled or prof_counts != {
+            k: {dtype: FLAT_K * per_step, other: 0} for k in eager_counts}):
+        raise AssertionError(f"{name}: a profiled {FLAT_K}-step call: the "
+                             f"profiler saw {prof['launches']}, the "
+                             f"counters read {prof_counts}; want "
+                             f"{want_profiled}")
+    if not (replay_vs_eager[0] <= eager_vs_eager[0] and loss_re <= loss_ee
+            and (eager_vs_eager[1] or not replay_vs_eager[1])):
+        raise AssertionError(f"{name}: run_steps against eager "
+                             f"{out['run_steps_vs_eager']}, eager against "
+                             f"eager {out['eager_vs_eager']}")
+    if flat_vs_scan[1] or flat["flat"][0] != flat["scan"][0]:
+        raise AssertionError(f"{name}: flat against scan "
+                             f"{out['flat_vs_scan']}")
+    if not all(np.isfinite(list(losses.values()))):
+        raise AssertionError(f"{name}: losses not finite: {losses}")
+    return out, {k: v[dtype] for k, v in got_counts.items()}
+
+
 # -- phase 5b: the analysis tier -------------------------------------------
 
 CUDA_ERROR_INVALID_VALUE = 1  # what a refused shared-memory request returns
@@ -4504,10 +4909,12 @@ def phase_analysis_timing(torch, np, errs, launches):
     tile_rows 8, and again at 14, the main path's launch.  Bounds: each
     input read and the output written once over 3.35 TB/s.  Library calls:
     x + lse[:, None] by torch broadcasting (it reads the [512] vector, not
-    the materialised operand), and x * 2.  Row 8's launch floor beside it:
-    an empty kernel on corpus_add's grid at the corpus shape, launched
-    through ctypes and timed the same way, and row 8 again at
-    [ADD_FLOOR_ROWS, 128], where its bytes, not the launch, lead."""
+    the materialised operand), beside it x + b on the kernel's own
+    materialised b (``library_materialised_ms``), and x * 2.  Row 8's
+    launch floor beside it: an empty kernel on corpus_add's grid at the
+    corpus shape, launched through ctypes and timed the same way, and
+    row 8 again at [ADD_FLOOR_ROWS, 128], where its bytes, not the
+    launch, lead."""
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import corpus as ck
 
@@ -4527,6 +4934,8 @@ def phase_analysis_timing(torch, np, errs, launches):
         device_ms(torch, lambda: x + lse[:, None]),
         {"x": [512, 128], "b": [512, 128], "library_call":
          "x + lse[:, None] (torch broadcasting)"})
+    # the same function on the kernel's own operands: both [N, 128]
+    add["library_materialised_ms"] = device_ms(torch, lambda: x + b)
     empty = _empty_launch()
     blocks = ck.corpus_add_grid(x.numel())[0]
     stream = torch.cuda.current_stream().cuda_stream
@@ -4548,7 +4957,8 @@ def phase_analysis_timing(torch, np, errs, launches):
         "x": [ADD_FLOOR_ROWS, 128],
         "ms": device_ms(torch, lambda: ck.corpus_add(xb, bb)),
         "bound_ms": 1e3 * 3 * 4 * xb.numel() / HBM_BYTES_PER_S,
-        "library_ms": device_ms(torch, lambda: xb + lb[:, None])}
+        "library_ms": device_ms(torch, lambda: xb + lb[:, None]),
+        "library_materialised_ms": device_ms(torch, lambda: xb + bb)}
     del xb, lb, bb
     xs = torch.from_numpy(rng.standard_normal(SCALE_SHAPE,
                                               dtype=np.float32)).to(dev)
@@ -5279,6 +5689,8 @@ def main() -> int:
     conv_launches, by_shape, trace = phase_resnet(torch, np, fluid)
     torch.cuda.empty_cache()
     resnet_amp_launches = phase_resnet_amp(torch, np, fluid)
+    torch.cuda.empty_cache()
+    rs_launches = phase_run_steps_training(torch, np, fluid)
     analysis_err, analysis_launches = phase_analysis(torch, np)
     kernels = phase_timing(torch, np, reqs, parity_err, serve_launches)
     kernels += phase_spec_timing(torch, np, spec_reqs, spec_err,
@@ -5312,8 +5724,17 @@ def main() -> int:
     kernels += [bf16_fwd] + bf16_bwd
     kernels += phase_conv_timing(torch, conv_err, conv_launches, by_shape,
                                  trace)
-    kernels += phase_conv_timing_bf16(torch, conv_bf16_err,
-                                      resnet_amp_launches)
+    conv_bf16_rows = phase_conv_timing_bf16(torch, conv_bf16_err,
+                                            resnet_amp_launches)
+    kernels += conv_bf16_rows
+    # the run_steps paths' launches (replayed graphs) beside the eager ones
+    for path, rows in (("transformer_fp32", bwd_rows),
+                       ("transformer_keep", [bf16_fwd] + bf16_bwd),
+                       ("resnet_keep", conv_bf16_rows)):
+        for r in rows:
+            n = rs_launches[path][r["name"].removesuffix("_bf16")]
+            r["launches_by_path"]["run_steps_" + path] = n
+            r["launches"] += n
     phase_conv_stats_sweep(torch, fluid)
     kernels += phase_analysis_timing(torch, np, analysis_err,
                                      analysis_launches)
@@ -5325,7 +5746,9 @@ def main() -> int:
                "long_context_serving": sum(
                    a["flash_fwd"] for a in lc_launches.values()),
                "training": train_launches["flash_fwd"],
-               "training_amp1": amp_launches["amp1"]["flash_fwd"]}
+               "training_amp1": amp_launches["amp1"]["flash_fwd"],
+               "run_steps_transformer_fp32":
+                   rs_launches["transformer_fp32"]["flash_fwd"]}
     kernels[0]["launches"] = sum(by_path.values())
     kernels[0]["launches_by_path"] = by_path
     kernels[0]["max_abs_err"] = max(parity_err["flash_fwd"],

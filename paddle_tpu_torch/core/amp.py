@@ -17,8 +17,10 @@ fp16 tensors count as half-width there too.
 The policy is process-wide, as in the JAX package, and explicit only:
 with no ``enable_amp`` call the port computes in fp32 on every device.
 (The JAX package picks keep-tier bf16 by itself when it traces for a TPU;
-that default came from TPU measurements and is not carried over.)  The
-eager executor compiles nothing, so there is no ``state_key``.
+that default came from TPU measurements and is not carried over.)
+``state_key()`` names the policy in the executor's cache of captured
+graphs (``Executor.run_steps``), as the JAX package keys its compiled
+steps by it.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 
 __all__ = ["amp_dtype", "disable_amp", "enable_amp", "keep_output",
            "match_kept", "mxu_operands", "mxu_output", "reset_amp",
-           "stats_dtype"]
+           "state_key", "stats_dtype"]
 
 _HALF = (torch.bfloat16, torch.float16)
 _POLICY = {"dtype": None, "keep": False}
@@ -60,6 +62,12 @@ def amp_dtype():
 
 def keep_output() -> bool:
     return _POLICY["keep"]
+
+
+def state_key() -> tuple:
+    """The policy as a hashable key: a step captured under one policy
+    does not run under another."""
+    return (_POLICY["dtype"], _POLICY["keep"])
 
 
 def stats_dtype(x) -> torch.dtype:

@@ -45,14 +45,17 @@ _SKIP_OPS = {"feed", "fetch"}
 
 class LoweringContext:
     """Carried state while running one block: the environment, the device
-    that fills and initializers allocate on, the random stream, and the
+    that fills and initializers allocate on, the random stream, the
+    constants built once (the executor's, kept across runs), and the
     stashed forward graphs by op uid."""
 
     def __init__(self, env: Dict[str, Any], device: torch.device,
-                 generator: torch.Generator):
+                 generator: torch.Generator,
+                 constants: Optional[Dict[Any, Any]] = None):
         self.env = env
         self.device = device
         self.generator = generator
+        self.constants = {} if constants is None else constants
         # uid -> (float inputs {(slot, pos): leaf}, outputs {(slot, pos): t})
         self.stash: Dict[int, Any] = {}
         # names some op looks up, or the caller keeps; set by run_block
@@ -62,6 +65,15 @@ class LoweringContext:
     def is_read(self, slot: str) -> bool:
         """Whether anything reads an output of the current op's ``slot``."""
         return any(n in self.reads for n in self.op.outputs.get(slot, ()))
+
+    def constant(self, key, make):
+        """The constant under ``key``, built by ``make()`` at first use.  A
+        copy from host memory cannot be captured into a CUDA graph, so a
+        captured step reads the tensor an earlier run built."""
+        value = self.constants.get(key)
+        if value is None:
+            value = self.constants[key] = make()
+        return value
 
     def lookup(self, name: str):
         if not name:

@@ -25,5 +25,6 @@ Import the wrappers from their modules (``kernels.flash_attention``,
 ``kernels.corpus``, whose two ops are ``torch.library`` custom ops, so
 the linter sees each launch in a captured graph); this package
 re-exports nothing, so a module name never resolves to a function of the
-same name.
+same name.  ``kernels.counters`` reads and adds to every wrapper's launch
+counters at once (a replayed CUDA graph launches without calling them).
 """

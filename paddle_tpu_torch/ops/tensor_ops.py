@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.proto import DataType, dtype_to_torch
 from ..core.registry import register_op
@@ -66,11 +67,16 @@ def _assign(ctx, ins, attrs):
 
 @register_op("assign_value", infer_shape=_fill_constant_infer, no_grad=True)
 def _assign_value(ctx, ins, attrs):
+    """The constant is built on the device once (``ctx.constant``) and
+    read by every later run: its copy from host memory cannot be captured
+    into a CUDA graph."""
     vals = (attrs.get("fp32_values") or attrs.get("int32_values")
             or attrs.get("values") or [])
     arr = np.asarray(vals, dtype=np.float64).reshape(attrs["shape"])
-    return {"Out": [torch.as_tensor(arr, device=ctx.device).to(
-        _dtype(attrs))]}
+    dtype = _dtype(attrs)
+    return {"Out": [ctx.constant(
+        ("assign_value", arr.shape, dtype, arr.tobytes()),
+        lambda: torch.as_tensor(arr, device=ctx.device).to(dtype))]}
 
 
 # -- random ------------------------------------------------------------------
@@ -225,12 +231,14 @@ def _lookup_infer(op, block):
 @register_op("lookup_table", infer_shape=_lookup_infer, diff_inputs=["W"])
 def _lookup_table(ctx, ins, attrs):
     """Embedding lookup; rows at padding_idx read as zeros, so (through
-    the mask) they take no gradient either."""
+    the mask) they take no gradient either.  ``F.embedding``: on the card
+    its backward sums each row's gradients in a fixed order (sorted, not
+    by atomic adds), so two runs of a step are bit-equal."""
     w = ins["W"][0]
     ids = ins["Ids"][0]
     if ids.dim() >= 1 and ids.shape[-1] == 1:
         ids = ids.squeeze(-1)
-    out = w.index_select(0, ids.reshape(-1)).reshape(*ids.shape, w.shape[1])
+    out = F.embedding(ids, w)
     padding_idx = attrs.get("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
