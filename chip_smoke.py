@@ -182,7 +182,9 @@ prints no final result line):
    ``resnet_imagenet(depth=50, fuse_bn="conv")`` at full width (224 x
    224, 1000 classes), ``MomentumOptimizer(0.1, 0.9).minimize``,
    ``Executor().run(startup)``, then ten steps on one fixed batch of 256
-   from ``class_batch`` (seed 0).  Before it, conv-epilogue parity at
+   from ``class_batch`` (seed 0), with cuDNN deterministic (so that the
+   losses, and the gate on them, read the same on every call).  Before
+   it, conv-epilogue parity at
    batch 4 and at the steps' batch of 256: ``conv_stats`` and
    ``bn_epilogue`` against their plain versions on every conv shape class
    the program has (and one off the tiles: C, F and M not multiples of
@@ -268,6 +270,30 @@ prints no final result line):
    (245760) flagged and refused the same way; launches 2 corpus_add and 1
    corpus_scale.  Three controls must lint clean: the add with a
    full-size b, a 32 KiB broadcast, the scale at tile_rows 8.
+5c. DeepFM training, as bench.py trains it (``deepfm(num_fields=26,
+   vocab_size=1000000, embed_dim=10)``, hidden (400, 400, 400), batch
+   512, ``AdamOptimizer(1e-3, lazy_mode=True)``, fp32): the two tables'
+   gradients are SelectedRowsValues and lazy Adam updates only the rows
+   the batch names.  No hand-written kernel is on this path.  From one
+   startup state and one batch (seed 0) staged on the card: two eager
+   arms of ten ``run`` steps, then ``run_steps(steps=10)``.  Gates, each
+   printed on a line of its own when it fails: losses finite and the last
+   below the first; the two arms bit-equal (losses and persistables);
+   the replay bit-equal to the first arm (persistables and last loss);
+   every table row no id touched bit-equal to its initial value, in the
+   parameter and both moments, after the eager arm and after the replay;
+   one step on the card against one on a ``CPUPlace`` executor from the
+   same state: the loss within 1e-4 relative, and what the step changed
+   in each persistable (the tables and their moments at the touched
+   rows) within 2e-3 of the largest change the CPU step made to it.
+   Four faults must fail that gate: three planted in the card step's
+   state (the embedding table's rows left as they were, moved the wrong
+   way, its moments those of a 1% larger gradient) and the card step
+   run again with TF32 on.  Printed: eager step median and run_steps step
+   (three timed calls over ten steps), examples/s, the busy share of a
+   profiled eager step and of a profiled ten-step call with device time
+   by kind, peak memory of both arms, the warm-up and capture seconds,
+   and the bytes of every persistable.
 6. Times from CUDA events (median of 30 after warm-up, the launches queued
    behind a device sleep so host overhead stays out): each kernel, its
    plain version, its bound (bytes over 3.35 TB/s or fp32 flops over 67
@@ -3461,7 +3487,9 @@ def phase_resnet(torch, np, fluid):
     Momentum.minimize -> Executor.run(startup) -> Executor.run(main) for
     RESNET_STEPS steps on one fixed batch.  Each of the 53
     conv_bn_add_act ops launches conv_stats and bn_epilogue once a step
-    (the backward is plain torch and cuDNN)."""
+    (the backward is plain torch and cuDNN).  The steps and the profiled
+    step run with cuDNN deterministic, so that the trajectory, and the
+    gate on it, are the same on every call."""
     from paddle_tpu_torch.kernels import conv_epilogue as ce
 
     main, startup, spec, params_grads = build_resnet(fluid)
@@ -3473,23 +3501,31 @@ def phase_resnet(torch, np, fluid):
     n_params = sum(int(np.prod(p.shape)) for p, _ in params_grads)
     batch = spec.synthetic_batch(RESNET_BATCH, seed=SEED)
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ce.reset_launches()
-    ce.conv_bn_act.layout_copies = 0
-    losses, step_s = [], []
-    for _ in range(RESNET_STEPS):
-        t0 = time.perf_counter()
-        loss, = exe.run(main, feed=batch, fetch_list=[spec.loss],
-                        scope=scope)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
         torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        losses.append(float(loss.reshape(-1)[0]))
-    launches = _conv_counts(ce)
-    by_dtype = _conv_counts_by_dtype(ce)
-    by_shape = dict(ce.conv_stats.launches_by_shape)
-    copies = ce.conv_bn_act.layout_copies
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        ce.reset_launches()
+        ce.conv_bn_act.layout_copies = 0
+        losses, step_s = [], []
+        for _ in range(RESNET_STEPS):
+            t0 = time.perf_counter()
+            loss, = exe.run(main, feed=batch, fetch_list=[spec.loss],
+                            scope=scope)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss.reshape(-1)[0]))
+        launches = _conv_counts(ce)
+        by_dtype = _conv_counts_by_dtype(ce)
+        by_shape = dict(ce.conv_stats.launches_by_shape)
+        copies = ce.conv_bn_act.layout_copies
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        step_med = statistics.median(step_s)
+        trace = _trace_resnet(torch, exe, main, spec, batch, scope,
+                              step_med)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     want = {k: n_conv * RESNET_STEPS for k in CONV_KERNELS}
     want_by_dtype = {k: {"float32": n, "bfloat16": 0}
                      for k, n in want.items()}
@@ -3506,8 +3542,6 @@ def phase_resnet(torch, np, fluid):
                              f"the program's {want_by_shape}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"losses not finite and falling: {losses}")
-    step_med = statistics.median(step_s)
-    trace = _trace_resnet(torch, exe, main, spec, batch, scope, step_med)
     del scope
     torch.cuda.empty_cache()
     parity = _resnet_card_vs_cpu(np, fluid, main, spec, params_grads,
@@ -3520,6 +3554,7 @@ def phase_resnet(torch, np, fluid):
           "batch": RESNET_BATCH, "params": n_params,
           "main_ops": len(main.desc.block(0).ops),
           "startup_ops": len(startup.desc.block(0).ops),
+          "cudnn_deterministic": True,
           "steps": RESNET_STEPS, "losses": losses, "step_s": step_s,
           "step_ms_median": 1e3 * step_med,
           "images_per_s": RESNET_BATCH / step_med, "peak_alloc_gib": peak_gib,
@@ -4990,6 +5025,258 @@ def phase_analysis_timing(torch, np, errs, launches):
     return rows
 
 
+# -- phase 5c: DeepFM (sparse embeddings, lazy Adam) --------------------------
+
+# bench.py:205-216 and :309-314
+DEEPFM_CFG = dict(num_fields=26, vocab_size=1000 * 1000, embed_dim=10)
+DEEPFM_BATCH, DEEPFM_STEPS, DEEPFM_LR = 512, 10, 1e-3
+DEEPFM_TABLES = ("deepfm_w1", "deepfm_emb")
+DEEPFM_LOSS_RTOL = 1e-4  # card vs CPU loss, relative
+# card vs CPU: what one step changed in each persistable (the tables'
+# states at the touched rows) within this * the largest change on the CPU
+DEEPFM_STATE_TOL = 2e-3
+# faults planted in the card step's state, each of which must fail that
+# gate: the embedding table's rows left as they were, moved the wrong way,
+# or its moments those of a 1% larger gradient
+DEEPFM_FAULTS = ("emb_update_skipped", "emb_update_sign_flipped",
+                 "emb_moments_of_a_1pct_larger_gradient")
+
+
+def build_deepfm(fluid):
+    """(main, startup, spec) of DeepFM + lazy Adam, as bench.py builds
+    them."""
+    from paddle_tpu_torch.models import deepfm
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        spec = deepfm(**DEEPFM_CFG)
+        fluid.optimizer.AdamOptimizer(learning_rate=DEEPFM_LR,
+                                      lazy_mode=True).minimize(spec.loss)
+    return main, startup, spec
+
+
+def _table_rows(name):
+    """Whether persistable ``name`` has one row per id of a table (the
+    table or one of its moments)."""
+    return name.startswith(DEEPFM_TABLES) and "_pow_acc" not in name
+
+
+def _untouched_changed(torch, state, init, untouched):
+    """The table states whose rows no id touched are not all bit-equal to
+    their initial values."""
+    return [n for n in init if _table_rows(n)
+            and not torch.equal(state[n][untouched], init[n][untouched])]
+
+
+def _deepfm_fault(name, state, init):
+    """``state`` with planted fault ``name`` (DEEPFM_FAULTS)."""
+    out = dict(state)
+    emb = DEEPFM_TABLES[1]
+    if name == "emb_update_skipped":
+        out[emb] = init[emb]
+    elif name == "emb_update_sign_flipped":
+        out[emb] = 2 * init[emb] - state[emb]
+    else:  # m1 scales with the gradient, m2 with its square
+        out[emb + "_moment1_0"] = state[emb + "_moment1_0"] * 1.01
+        out[emb + "_moment2_0"] = state[emb + "_moment2_0"] * 1.01 ** 2
+    return out
+
+
+def _over_bound(state, want, init, touched):
+    """{name: max |change - want's change| over DEEPFM_STATE_TOL * max
+    |want's change|}, the changes from ``init`` in float64 (the tables'
+    states at the touched rows); inf where want did not change and state
+    did."""
+    ratios = {}
+    for n, t in init.items():
+        a, b = state[n], want[n]
+        if _table_rows(n):
+            a, b, t = a[touched], b[touched], t[touched]
+        got, ref = a.double() - t.double(), b.double() - t.double()
+        err = float((got - ref).abs().max())
+        bound = DEEPFM_STATE_TOL * float(ref.abs().max())
+        ratios[n] = err / bound if bound > 0 else (
+            0.0 if err == 0 else float("inf"))
+    return ratios
+
+
+def _worst(ratios):
+    n = max(ratios, key=ratios.get)
+    return {"leaf": n, "over_bound": ratios[n]}
+
+
+def _deepfm_card_vs_cpu(torch, np, fluid, main, spec, init, batch, touched):
+    """One step from ``init`` on the card (TF32 off, and once more with
+    TF32 on) and on a CPUPlace executor: the loss's relative distance and
+    each persistable's reading of _over_bound, for the sound card step,
+    for each planted fault of DEEPFM_FAULTS, and for the TF32 step."""
+    out = {}
+    runs = (("card", fluid.Executor(), False),
+            ("card_tf32", fluid.Executor(), True),
+            ("cpu", fluid.Executor(fluid.CPUPlace()), False))
+    for where, exe, tf32 in runs:
+        scope = fluid.Scope()
+        exe.load_state({n: t.clone() for n, t in init.items()}, scope)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            loss, = exe.run(main, feed=batch, fetch_list=[spec.loss],
+                            scope=scope)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        out[where] = (float(loss.reshape(-1)[0]), {
+            n: scope.find_var(n).detach().cpu() for n in init})
+        del scope
+    (card_loss, card), (cpu_loss, cpu) = out["card"], out["cpu"]
+    ratios = _over_bound(card, cpu, init, touched)
+    faults = {f: _worst(_over_bound(_deepfm_fault(f, card, init), cpu, init,
+                                    touched)) for f in DEEPFM_FAULTS}
+    tf32 = _worst(_over_bound(out["card_tf32"][1], cpu, init, touched))
+    return {"loss_card": card_loss, "loss_cpu": cpu_loss,
+            "loss_rel": abs(card_loss - cpu_loss) / abs(cpu_loss),
+            "state_over_bound_by_leaf": ratios, "state_worst": _worst(ratios),
+            "state_over_bound": {n: r for n, r in ratios.items() if r > 1},
+            "planted_faults": faults, "tf32_on": tf32}
+
+
+def phase_deepfm_training(torch, np, fluid):
+    """DeepFM at bench.py's width through ``Executor.run`` and
+    ``Executor.run_steps`` (docstring item 5c).  Gates run after the
+    phase's line is printed; each failure is printed on its own line."""
+    from paddle_tpu_torch.kernels import counters
+
+    main, startup, spec = build_deepfm(fluid)
+    dev = torch.device("cuda")
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = _state_on_host(startup, scope)
+    del scope
+    host_batch = spec.synthetic_batch(DEEPFM_BATCH, seed=SEED)
+    feed = {k: torch.from_numpy(v).to(dev) for k, v in host_batch.items()}
+    ids = torch.from_numpy(np.unique(host_batch["feat_ids"]))
+    untouched = torch.ones(DEEPFM_CFG["vocab_size"], dtype=torch.bool)
+    untouched[ids] = False
+
+    def loaded():
+        scope = fluid.Scope()
+        exe.load_state(init, scope)
+        return scope
+
+    before = counters.snapshot()
+    # two eager arms
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    arms, step_s = [], []
+    for _ in range(2):
+        scope, losses = loaded(), []
+        for _ in range(DEEPFM_STEPS):
+            t0 = time.perf_counter()
+            loss, = exe.run(main, feed=feed, fetch_list=[spec.loss],
+                            scope=scope)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss.reshape(-1)[0]))
+        arms.append((losses, _state_on_host(startup, scope)))
+    eager_peak = torch.cuda.max_memory_allocated() / 2**30
+    eager_prof = _profiled(torch, lambda: exe.run(
+        main, feed=feed, fetch_list=[spec.loss], scope=scope), marks={})
+    del scope
+    # run_steps: captured on the first call, then replayed
+    rexe, scope = fluid.Executor(), loaded()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, = rexe.run_steps(main, feed_list=[feed], fetch_list=[spec.loss],
+                           steps=DEEPFM_STEPS, scope=scope)
+    torch.cuda.synchronize()
+    first_call_s = time.perf_counter() - t0
+    replay = (float(loss.reshape(-1)[0]), _state_on_host(startup, scope))
+    graph_peak = torch.cuda.max_memory_allocated() / 2**30
+    call_s = []
+    for _ in range(RUN_STEPS_CALLS):
+        t0 = time.perf_counter()
+        rexe.run_steps(main, feed_list=[feed], fetch_list=[spec.loss],
+                       steps=DEEPFM_STEPS, scope=scope)
+        torch.cuda.synchronize()
+        call_s.append(time.perf_counter() - t0)
+    long_prof = _profiled(torch, lambda: rexe.run_steps(
+        main, feed_list=[feed], fetch_list=[spec.loss], steps=DEEPFM_STEPS,
+        scope=scope), marks={})
+    capture = dict(rexe.last_capture)
+    del rexe, scope
+    launches = counters.difference(before, counters.snapshot())
+    torch.cuda.empty_cache()
+    parity = _deepfm_card_vs_cpu(torch, np, fluid, main, spec, init,
+                                 host_batch, ids)
+
+    (losses, eager), (losses_2, eager_2) = arms
+    eager_vs_eager = _state_distance(torch, eager_2, eager)
+    replay_vs_eager = _state_distance(torch, replay[1], eager)
+    step_med = statistics.median(step_s)
+    rs_step = statistics.median(call_s) / DEEPFM_STEPS
+    state_bytes = sum(t.numel() * t.element_size() for t in init.values())
+    kinds = long_prof["device_ms_by_kind"]
+    emit({"phase": "deepfm_training", "card": card_line(),
+          "config": DEEPFM_CFG, "hidden_sizes": [400, 400, 400],
+          "optimizer": {"type": "adam", "lr": DEEPFM_LR, "lazy_mode": True},
+          "batch": DEEPFM_BATCH, "steps": DEEPFM_STEPS,
+          "main_ops": len(main.desc.block(0).ops),
+          "touched_rows": int(ids.numel()), "losses": losses,
+          "losses_arm_2": losses_2, "run_steps_last_loss": replay[0],
+          "eager_vs_eager": {"max_abs": eager_vs_eager[0],
+                             "not_bit_equal": eager_vs_eager[1][:5]},
+          "run_steps_vs_eager": {"max_abs": replay_vs_eager[0],
+                                 "not_bit_equal": replay_vs_eager[1][:5]},
+          "card_vs_cpu": parity, "hand_written_launches": launches,
+          "eager_step_ms_median": 1e3 * step_med, "eager_step_s": step_s,
+          "eager_examples_per_s": DEEPFM_BATCH / step_med,
+          "run_steps_call_s": call_s,
+          "run_steps_step_ms_median": 1e3 * rs_step,
+          "run_steps_examples_per_s": DEEPFM_BATCH / rs_step,
+          "first_call_s": first_call_s, "capture": capture,
+          "eager_profiled_step": {
+              "wall_s": eager_prof["wall_s"], "busy_s": eager_prof["busy_s"],
+              "busy_share": eager_prof["busy_s"] / step_med,
+              "device_ms_by_kind": eager_prof["device_ms_by_kind"]},
+          "run_steps_profiled_call": {
+              "steps": DEEPFM_STEPS, "wall_s": long_prof["wall_s"],
+              "busy_s": long_prof["busy_s"],
+              "busy_share": long_prof["busy_s"] / long_prof["wall_s"],
+              "busy_ms_a_step": 1e3 * long_prof["busy_s"] / DEEPFM_STEPS,
+              "device_ms_by_kind": kinds},
+          "peak_alloc_gib": {"eager": eager_peak, "run_steps": graph_peak},
+          "state_copy": {"bytes": 2 * state_bytes,
+                         "bound_ms": 2e3 * state_bytes / HBM_BYTES_PER_S,
+                         "memcpy_ms_a_step": kinds.get("memcpy", 0.0)
+                         / DEEPFM_STEPS}})
+    failed = []
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        failed.append(f"losses not finite and falling: {losses}")
+    if eager_vs_eager[1] or losses_2 != losses:
+        failed.append(f"eager arms differ: {eager_vs_eager[1][:5]}, losses "
+                      f"{losses} and {losses_2}")
+    if replay_vs_eager[1] or replay[0] != losses[-1]:
+        failed.append(f"run_steps against eager: {replay_vs_eager[1][:5]} "
+                      f"differ, last loss {replay[0]} against {losses[-1]}")
+    for arm, state in (("eager", eager), ("run_steps", replay[1])):
+        changed = _untouched_changed(torch, state, init, untouched)
+        if changed:
+            failed.append(f"{arm}: untouched rows moved in {changed}")
+    if parity["loss_rel"] > DEEPFM_LOSS_RTOL or parity["state_over_bound"]:
+        failed.append(f"card against CPU: loss {parity['loss_card']} and "
+                      f"{parity['loss_cpu']}, state over its bound "
+                      f"{parity['state_over_bound']}")
+    passed = [f for f, r in list(parity["planted_faults"].items())
+              + [("tf32_on", parity["tf32_on"])] if not r["over_bound"] > 1]
+    if passed:
+        failed.append(f"planted faults passed the card-against-CPU gate: "
+                      f"{passed}")
+    for f in failed:
+        print(f"deepfm_training gate failed: {f}", flush=True)
+    if failed:
+        raise AssertionError(f"deepfm_training: {len(failed)} gates failed")
+
+
 # -- phase 6: timing -------------------------------------------------------
 
 def device_ms(torch, fn, reps=30, warmup=5):
@@ -5692,6 +5979,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     rs_launches = phase_run_steps_training(torch, np, fluid)
     analysis_err, analysis_launches = phase_analysis(torch, np)
+    torch.cuda.empty_cache()
+    phase_deepfm_training(torch, np, fluid)
+    torch.cuda.empty_cache()
     kernels = phase_timing(torch, np, reqs, parity_err, serve_launches)
     kernels += phase_spec_timing(torch, np, spec_reqs, spec_err,
                                  spec_launches)

@@ -18,6 +18,12 @@ program, with no per-op gradient code.  The JAX compiler stashes a
 - a non-float input, or one the op's outputs do not depend on, gets zeros
   where a grad slot names it (as the JAX compiler gives ``_Const`` inputs).
 
+A registered ``<type>_grad`` rule runs in place of that replay, as in the
+JAX compiler (``lookup_table_grad``, whose sparse gradient autograd cannot
+give): it reads the grad op's inputs by name, and its forward op runs
+under ``torch.no_grad()`` and stashes nothing.  A value in the environment
+may be a tensor or a ``SelectedRowsValue`` (core/selected_rows.py).
+
 Every other op runs under ``torch.no_grad()``.  Each op's inputs are
 detached, so no autograd graph spans two ops.
 
@@ -160,15 +166,30 @@ def _run_grad_op(ctx: LoweringContext, op: OpDesc) -> None:
             ctx.env[name] = g
 
 
+def _run_grad_rule(ctx: LoweringContext, op: OpDesc) -> None:
+    ctx.op = op
+    ins = {slot: [ctx.lookup(n) for n in names]
+           for slot, names in op.inputs.items()}
+    with torch.no_grad():
+        _bind_outputs(ctx, op, OpRegistry.get(op.type).lower(
+            ctx, ins, dict(op.attrs)))
+
+
 def _is_grad_op(op: OpDesc) -> bool:
     return op.type.endswith(GRAD_OP_SUFFIX) and "__fwd_op_uid__" in op.attrs
 
 
+def _is_replayed(op: OpDesc) -> bool:
+    """A grad op that differentiates its forward op's stashed graph (one
+    with no registered rule of its own)."""
+    return _is_grad_op(op) and not OpRegistry.has(op.type)
+
+
 def _names_looked_up(op: OpDesc) -> Iterable[str]:
-    """The env names running ``op`` reads.  A grad op reads its cotangents
-    and, for zeros, the forward inputs it writes gradients for; the forward
-    outputs it names come from the stash."""
-    if not _is_grad_op(op):
+    """The env names running ``op`` reads.  A replayed grad op reads its
+    cotangents and, for zeros, the forward inputs it writes gradients for;
+    the forward outputs it names come from the stash."""
+    if not _is_replayed(op):
         return op.input_arg_names()
     return [n for slot, names in op.inputs.items()
             if slot.endswith(GRAD_SUFFIX)
@@ -188,7 +209,7 @@ def run_block(ctx: LoweringContext, ops: Sequence[OpDesc],
             last_read[name] = i
     wanted: Dict[int, Set[tuple]] = {}
     for op in ops:
-        if "__fwd_op_uid__" in op.attrs:
+        if _is_replayed(op):
             wanted.setdefault(op.attrs["__fwd_op_uid__"], set()).update(
                 (slot[:-len(GRAD_SUFFIX)], pos)
                 for slot, names in op.outputs.items()
@@ -197,8 +218,10 @@ def run_block(ctx: LoweringContext, ops: Sequence[OpDesc],
     for i, op in enumerate(ops):
         if op.type in _SKIP_OPS:
             continue
-        if _is_grad_op(op):
+        if _is_replayed(op):
             _run_grad_op(ctx, op)
+        elif _is_grad_op(op):
+            _run_grad_rule(ctx, op)
         elif not OpRegistry.has(op.type):
             raise NotImplementedError(f"op '{op.type}' has no torch rule")
         else:

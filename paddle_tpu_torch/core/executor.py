@@ -41,6 +41,7 @@ from .framework import Program, Variable, default_main_program
 from .place import CUDAPlace, Place
 from .proto import VarType, dtype_to_torch
 from .scope import Scope, global_scope
+from .selected_rows import SelectedRowsValue
 
 __all__ = ["Executor", "RNG_STATE_VAR"]
 
@@ -182,6 +183,9 @@ class Executor:
         # run time, fp32 in its desc; numpy has no bfloat16)
         out = []
         for name, t in zip(plan.fetch_names, fetches):
+            if isinstance(t, SelectedRowsValue):  # a sparse gradient
+                out.append(t.to_numpy())
+                continue
             vd = plan.block.vars.get(name)
             if vd is not None and vd.type == VarType.LOD_TENSOR:
                 t = t.to(dtype_to_torch(vd.dtype))
@@ -210,7 +214,8 @@ class Executor:
                   mode: str = "scan") -> List[Any]:
         """Run ``steps`` steps (default ``len(feed_list)``), step i on
         ``feed_list[i % len(feed_list)]``; returns the last step's
-        fetches.  Every feed dict names the same variables.  On the card
+        fetches.  Every feed dict names the same variables at the same
+        shapes (a ValueError before any step otherwise).  On the card
         the step is captured into a CUDA graph (``mode`` "scan": one step
         replayed ``steps`` times; "flat": ``steps`` chained steps replayed
         once), cached by program, steps, feeds, fetches, mode, AMP state
@@ -224,12 +229,19 @@ class Executor:
             raise ValueError("run_steps requires steps >= 1")
         scope = scope or global_scope()
         feed_names = sorted(feed_list[0])
+        shapes = {n: tuple(np.shape(feed_list[0][n])) for n in feed_names}
         for i, feed in enumerate(feed_list):
             if sorted(feed) != feed_names:
                 raise ValueError(
                     f"run_steps feed_list[{i}] keys {sorted(feed)} differ "
                     f"from feed_list[0] keys {feed_names}; every step must "
                     "feed the same variables")
+            for n in feed_names:
+                if tuple(np.shape(feed[n])) != shapes[n]:
+                    raise ValueError(
+                        f"run_steps feed_list[{i}]['{n}'] has shape "
+                        f"{tuple(np.shape(feed[n]))}, feed_list[0]'s "
+                        f"{shapes[n]}; every step must feed the same shapes")
         if mode not in ("scan", "flat"):
             raise ValueError(f"run_steps mode must be 'scan' or 'flat', "
                              f"got {mode!r}")

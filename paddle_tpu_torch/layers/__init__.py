@@ -2,10 +2,11 @@
 (counterparts in the mirrored files of paddle_tpu/layers)."""
 
 from ..layer_helper import LayerHelper
-from . import control_flow, io, nn, tensor  # noqa: F401
+from . import control_flow, io, nn, ops, tensor  # noqa: F401
 from .control_flow import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
+from .ops import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
 
 

@@ -16,9 +16,10 @@ from ..param_attr import ParamAttr
 
 __all__ = ["accuracy", "batch_norm", "conv2d", "conv_bn_add_act",
            "cross_entropy", "dropout", "elementwise_add", "elementwise_div",
-           "elementwise_mul", "embedding", "fc", "fused_attention",
-           "fused_bn_add_act", "layer_norm", "matmul", "pool2d", "relu",
-           "softmax", "softmax_with_cross_entropy", "topk"]
+           "elementwise_mul", "elementwise_sub", "embedding", "fc",
+           "fused_attention", "fused_bn_add_act", "layer_norm", "matmul",
+           "pool2d", "relu", "sigmoid_cross_entropy_with_logits", "softmax",
+           "softmax_with_cross_entropy", "topk"]
 
 
 def _pair(x, n=2):
@@ -276,10 +277,10 @@ def embedding(input, size: Sequence[int], is_sparse: bool = False,
               padding_idx: Optional[int] = None, param_attr=None,
               dtype="float32", name: Optional[str] = None):
     """Embedding lookup (lookup_table); the padding_idx row reads as zeros
-    and takes no gradient.  Dense gradients only (is_sparse=False)."""
-    if is_sparse:
-        raise NotImplementedError("sparse (SelectedRows) embedding "
-                                  "gradients are not ported")
+    and takes no gradient.  ``is_sparse=True`` makes the table's gradient
+    a SelectedRowsValue (the looked-up ids and their rows, never the
+    vocab): Adam with ``lazy_mode`` updates only those rows, and other
+    optimizers take it as a dense gradient."""
     helper = LayerHelper("embedding", param_attr=param_attr, name=name)
     w = helper.create_parameter(helper.param_attr, shape=list(size),
                                 dtype=dtype,
@@ -360,6 +361,18 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     return loss
 
 
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
+                                      name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", input=x,
+                         name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="sigmoid_cross_entropy_with_logits",
+        inputs={"X": [x], "Label": [label]}, outputs={"Out": [out]},
+        attrs={"ignore_index": ignore_index})
+    return out
+
+
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
     helper = LayerHelper("matmul", input=x, name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -388,6 +401,10 @@ def _elementwise(op_type, x, y, axis=-1, act=None, name=None):
 
 def elementwise_add(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_sub", x, y, axis, act, name)
 
 
 def elementwise_mul(x, y, axis=-1, act=None, name=None):

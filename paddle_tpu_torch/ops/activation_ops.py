@@ -8,6 +8,14 @@ from ..core.registry import register_op
 from .common import same_shape
 
 
-@register_op("relu", infer_shape=same_shape())
-def _relu(ctx, ins, attrs):
-    return {"Out": [torch.relu(ins["X"][0])]}
+def _unary(name, fn):
+    @register_op(name, infer_shape=same_shape())
+    def _lower(ctx, ins, attrs, _fn=fn):
+        return {"Out": [_fn(ins["X"][0])]}
+
+    return _lower
+
+
+_unary("relu", torch.relu)
+_unary("sigmoid", torch.sigmoid)
+_unary("square", torch.square)

@@ -22,5 +22,6 @@ def _make(name, fn):
 
 
 _make("elementwise_add", lambda x, y: x + y)
+_make("elementwise_sub", lambda x, y: x - y)
 _make("elementwise_mul", lambda x, y: x * y)
 _make("elementwise_div", lambda x, y: x / y)

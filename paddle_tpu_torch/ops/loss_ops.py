@@ -1,6 +1,6 @@
 """Loss ops (counterpart of paddle_tpu/ops/loss_ops.py): cross_entropy
-over probabilities, and softmax_with_cross_entropy with folded label
-smoothing — hard labels only."""
+over probabilities, softmax_with_cross_entropy with folded label
+smoothing — hard labels only — and sigmoid_cross_entropy_with_logits."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ import torch
 
 from ..core import amp
 from ..core.registry import register_op
-from .common import in_desc, set_output
+from .common import in_desc, same_shape, set_output
 
 
 def _cross_entropy_infer(op, block):
@@ -71,3 +71,17 @@ def _softmax_with_cross_entropy(ctx, ins, attrs):
     softmax = (torch.exp(logp).to(logits.dtype) if ctx.is_read("Softmax")
                else None)
     return {"Softmax": [softmax], "Loss": [loss.to(logits.dtype)]}
+
+
+@register_op("sigmoid_cross_entropy_with_logits", infer_shape=same_shape(),
+             diff_inputs=["X"])
+def _sigmoid_cross_entropy_with_logits(ctx, ins, attrs):
+    """max(x, 0) - x * label + log(1 + exp(-|x|)), the stable form; 0
+    where the label is ignore_index."""
+    x = ins["X"][0]
+    label = ins["Label"][0]
+    loss = (torch.maximum(x, torch.zeros_like(x)) - x * label
+            + torch.log1p(torch.exp(-torch.abs(x))))
+    ignore = attrs.get("ignore_index", -100)
+    return {"Out": [torch.where(label == ignore, torch.zeros_like(loss),
+                                loss)]}

@@ -12,6 +12,7 @@ import torch
 from ..core import amp
 from ..core.proto import DataType, dtype_to_torch
 from ..core.registry import register_op
+from ..core.selected_rows import SelectedRowsValue
 from .common import in_desc, same_shape, set_output
 
 
@@ -96,8 +97,16 @@ def _sum_infer(op, block):
 @register_op("sum", infer_shape=_sum_infer)
 def _sum(ctx, ins, attrs):
     """Add N tensors (also the gradient accumulator append_backward
-    inserts)."""
+    inserts).  Sparse gradients of one table stay sparse (their slots
+    concatenated); beside a dense one they are made dense."""
     vals = [v for v in ins["X"] if v is not None]
+    if all(isinstance(v, SelectedRowsValue) for v in vals):
+        out = vals[0]
+        for v in vals[1:]:
+            out = out.concat(v)
+        return {"Out": [out]}
+    vals = [v.to_dense() if isinstance(v, SelectedRowsValue) else v
+            for v in vals]
     out = vals[0]
     for v in vals[1:]:
         out = out + v

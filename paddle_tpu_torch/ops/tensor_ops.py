@@ -1,6 +1,7 @@
 """Tensor creation / manipulation ops (counterpart of
 paddle_tpu/ops/tensor_ops.py): fills, assign, the uniform and gaussian
-initializers, reshape2 / squeeze2 / transpose2, split and lookup_table."""
+initializers, reshape2 / squeeze2 / transpose2, split, lookup_table and
+its gradient rule."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import torch.nn.functional as F
 
 from ..core.proto import DataType, dtype_to_torch
 from ..core.registry import register_op
+from ..core.selected_rows import SelectedRowsValue, segment_sum
 from .common import in_desc, set_output
 
 
@@ -243,3 +245,31 @@ def _lookup_table(ctx, ins, attrs):
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
     return {"Out": [out]}
+
+
+@register_op("lookup_table_grad", no_grad=True)
+def _lookup_table_grad(ctx, ins, attrs):
+    """The table's gradient, in place of the autograd replay (the JAX
+    package registers the same rule).  With ``is_sparse`` it is a
+    SelectedRowsValue: the looked-up ids and the output gradient's rows,
+    padding_idx slots dead, V in no buffer; the optimizer ops update only
+    the rows it names.  Without, the dense [V, D] sum of F.embedding's
+    backward on the masked output gradient, the very call autograd makes
+    for the forward rule above."""
+    w = ins["W"][0]
+    ids = ins["Ids"][0]
+    if ids.dim() >= 1 and ids.shape[-1] == 1:
+        ids = ids.squeeze(-1)
+    height, dim = w.shape
+    og = ins["Out@GRAD"][0].to(w.dtype)
+    padding_idx = attrs.get("padding_idx", -1)
+    padded = padding_idx is not None and padding_idx >= 0
+    if not attrs.get("is_sparse", False):
+        if padded:  # the forward's mask, differentiated
+            og = og * (ids != padding_idx).unsqueeze(-1).to(og.dtype)
+        return {"W@GRAD": [segment_sum(og, ids, height)]}
+    ids = ids.reshape(-1)
+    live = (ids != padding_idx if padded
+            else torch.ones_like(ids, dtype=torch.bool))
+    return {"W@GRAD": [SelectedRowsValue(ids, og.reshape(-1, dim), height,
+                                         live)]}

@@ -1,8 +1,9 @@
 """Optimizers (counterpart of paddle_tpu/optimizer.py): ``minimize``
 appends the backward ops and one update op per parameter to the program.
 
-Ported: the ``Optimizer`` base and ``MomentumOptimizer``.  Gradient clipping
-and regularization are not ported, and asking for them raises.
+Ported: the ``Optimizer`` base, ``MomentumOptimizer`` and ``AdamOptimizer``
+(with ``lazy_mode``).  Gradient clipping and regularization are not
+ported, and asking for them raises.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from .core.framework import (Parameter, Variable, default_main_program,
 from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
 
-__all__ = ["Momentum", "MomentumOptimizer", "Optimizer"]
+__all__ = ["Adam", "AdamOptimizer", "Momentum", "MomentumOptimizer",
+           "Optimizer"]
 
 
 class Optimizer:
@@ -58,11 +60,11 @@ class Optimizer:
 
     # -- accumulators --------------------------------------------------------
     def _add_accumulator(self, name: str, param: Parameter,
-                         fill_value: float = 0.0) -> Variable:
+                         fill_value: float = 0.0, shape=None) -> Variable:
         if param.name in self._accumulators[name]:
             return self._accumulators[name][param.name]
         var_name = unique_name(f"{param.name}_{name}")
-        shape = list(param.shape)
+        shape = list(shape if shape is not None else param.shape)
         var = default_main_program().global_block().create_var(
             name=var_name, shape=shape, dtype=param.dtype, persistable=True,
             stop_gradient=True)
@@ -132,4 +134,49 @@ class MomentumOptimizer(Optimizer):
             attrs={"mu": self._momentum, "use_nesterov": False})
 
 
+class AdamOptimizer(Optimizer):
+    _moment1_acc_str = "moment1"
+    _moment2_acc_str = "moment2"
+    _beta1_pow_acc_str = "beta1_pow_acc"
+    _beta2_pow_acc_str = "beta2_pow_acc"
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, regularization=None, name=None,
+                 lazy_mode=False):
+        super().__init__(learning_rate, regularization, name)
+        self.type = "adam"
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+        # sparse gradients update only the touched rows (ops/optimizer_ops)
+        self._lazy_mode = lazy_mode
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment1_acc_str, p)
+            self._add_accumulator(self._moment2_acc_str, p)
+            self._add_accumulator(self._beta1_pow_acc_str, p, shape=[1],
+                                  fill_value=self._beta1)
+            self._add_accumulator(self._beta2_pow_acc_str, p, shape=[1],
+                                  fill_value=self._beta2)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        m1 = self._get_accumulator(self._moment1_acc_str, param)
+        m2 = self._get_accumulator(self._moment2_acc_str, param)
+        b1p = self._get_accumulator(self._beta1_pow_acc_str, param)
+        b2p = self._get_accumulator(self._beta2_pow_acc_str, param)
+        return block.append_op(
+            type="adam",
+            inputs={"Param": [param], "Grad": [grad], "Moment1": [m1],
+                    "Moment2": [m2], "Beta1Pow": [b1p], "Beta2Pow": [b2p],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param], "Moment1Out": [m1],
+                     "Moment2Out": [m2], "Beta1PowOut": [b1p],
+                     "Beta2PowOut": [b2p]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon, "lazy_mode": self._lazy_mode})
+
+
+Adam = AdamOptimizer
 Momentum = MomentumOptimizer

@@ -32,6 +32,9 @@ from paddle_tpu_torch.core.framework import (  # noqa: E402
     unique_name_guard as tguard,
 )
 from paddle_tpu_torch.core.proto import DataType  # noqa: E402
+from paddle_tpu_torch.core.selected_rows import (  # noqa: E402
+    SelectedRowsValue,
+)
 from paddle_tpu_torch.kernels import conv_epilogue as tconv  # noqa: E402
 from paddle_tpu_torch.kernels import counters  # noqa: E402
 from paddle_tpu_torch.kernels import flash_attention as tflash  # noqa: E402
@@ -180,6 +183,26 @@ def test_run_steps_value_errors():
     # nothing ran
     _assert_states_equal(_state(main, scope), _state(main, _started(
         startup)[1]))
+
+
+def _reshaped_feeds(rows):
+    """Two feeds of x, [5, 8] and [rows, 8]."""
+    first = _feeds(1)[0]
+    return [first, {"x": first["x"][:rows].copy()}]
+
+
+@pytest.mark.parametrize("rows", [3, 1])
+def test_run_steps_feeds_of_other_shapes_raise_before_any_step(rows):
+    """A feed whose shape differs from feed_list[0]'s raises ValueError
+    before any step runs, as the JAX run_steps's stacking does (a [1, 8]
+    feed would otherwise broadcast into the card's [5, 8] buffer)."""
+    main, startup, loss = _mlp()
+    exe, scope = _started(startup)
+    before = _state(main, scope)
+    with pytest.raises(ValueError, match="shape"):
+        exe.run_steps(main, feed_list=_reshaped_feeds(rows),
+                      fetch_list=[loss], steps=2, scope=scope)
+    _assert_states_equal(_state(main, scope), before)
 
 
 def test_run_steps_sees_a_numpy_feed_refilled_in_place():
@@ -335,7 +358,7 @@ def test_the_card_path_caches_its_captures_and_never_runs_eagerly(
                        for t in f.values())
 
         def run(self, exe, staged, scope):
-            return [torch.zeros(1)]
+            return list(fetched)
 
     main, startup, loss = _mlp()
     exe, scope = _started(startup)
@@ -346,6 +369,7 @@ def test_the_card_path_caches_its_captures_and_never_runs_eagerly(
     before = _state(main, scope)
     feeds = _feeds(2)
     fail = False
+    fetched = [torch.zeros(1)]
 
     def call(**kw):
         args = dict(feed_list=feeds, fetch_list=[loss], steps=3,
@@ -376,3 +400,21 @@ def test_the_card_path_caches_its_captures_and_never_runs_eagerly(
     with pytest.raises(RuntimeError, match="capture failed"):
         call(steps=5)
     _assert_states_equal(_state(main, scope), before)
+    # feeds of differing shapes raise before anything is staged or captured
+    for rows in (3, 1):
+        with pytest.raises(ValueError, match="shape"):
+            call(feed_list=_reshaped_feeds(rows), steps=6)
+    assert len(made) == 6
+    _assert_states_equal(_state(main, scope), before)
+    # without return_numpy, each fetch is a copy of the static output, a
+    # sparse gradient's members included
+    fail = False
+    sparse = SelectedRowsValue(torch.tensor([2, 0]), torch.ones(2, 3), 4,
+                               torch.tensor([True, False]))
+    fetched = [torch.zeros(1), sparse]
+    _, got = call(return_numpy=False)
+    assert isinstance(got, SelectedRowsValue) and got.height == 4
+    for member in ("ids", "rows", "live"):
+        want = getattr(sparse, member)
+        assert getattr(got, member) is not want
+        assert torch.equal(getattr(got, member), want)
