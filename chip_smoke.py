@@ -145,6 +145,27 @@ prints no final result line):
    after ``cache.clear()``.  Tokens/s, host-clock time to first token,
    prefill tokens, pages allocated and pool bytes a token per run, and a
    profiled run's busy share.
+   Then sampled serving at the same width (``phase_sampled_serving``):
+   the speculative traffic under tools/serve_bench.py's three sampling
+   scenarios (temperature 0.8; with top_k 20; with top_p 0.9; request i
+   seeded SEED + i, request 0 also with a logit bias, a stop sequence
+   and max_new 16), beside the greedy arm of the same requests, at d = 0
+   and speculate=4, over fp32 and int8 pools: launches = steps x n_layer
+   of the pool dtype's entries and flash_fwd > 0, the pool clean, every
+   sequence ended by its cap or by its stop sequence there and nowhere
+   before, and each sampled run replayed bit for bit; a speculate=4 run
+   whose drafter proposes the d = 0 run's sampled tokens (accepted and
+   rolled-back tokens > 0); the card's sample_rows / spec_sample_rows
+   against the CPU's on the recorded logits rows (and the loop's own
+   tokens against the card's), equal outside the relative decision
+   margin 1e-5 with at most 1% of the rows inside it, and the residual
+   drawn unsalted on the card must fail that; the accept/resample
+   epilogue's emitted distribution over 8192 fixed seeds (TV < 0.05
+   against the plain epilogue, chi-square against the exact filtered
+   softmax, acceptance within 5 sigma of p(draft)); tokens/s and step
+   times of every run, and at the loop's shapes the epilogues' device
+   ms and kernels a call (torch.profiler), the stream's, and a call's
+   host ms.
 4. Training through the fluid entry points: ``TransformerConfig()`` with
    flash attention on and dropout off, ``MomentumOptimizer(1e-4,
    0.9).minimize``, ``Executor().run(startup)``, then ten
@@ -1400,6 +1421,391 @@ def phase_spec_main_path(torch, np):
           "max_abs_logit_distance_to_fp32_run": _logit_distance(np, res8,
                                                                 res)})
     return {"spec": launches, "int8": launches8}, reqs
+
+
+# -- phase 3b': sampled serving ----------------------------------------------
+
+# tools/serve_bench.py:474-480's sampling scenarios; request i of a
+# scenario draws from seed SEED + i
+SAMPLING_SCENARIOS = {"temp": dict(temperature=0.8),
+                      "topk": dict(temperature=0.8, top_k=20),
+                      "topp": dict(temperature=0.8, top_p=0.9)}
+# request 0 of each scenario also carries a logit bias, a stop sequence
+# (its biased token) and a per-request cap
+EDGE_TOKEN = 7
+EDGE = dict(logit_bias={EDGE_TOKEN: 4.0, 1: -4.0}, stop=((EDGE_TOKEN,),),
+            max_new=MAX_NEW // 2)
+SAMPLING_MARGIN = 1e-5  # relative decision margin under which a draw may flip
+NEAR_SHARE = 0.01      # at most this share of the rows inside it
+EXACT_SEEDS = 8192     # seeds of the TV / chi-square harness
+EXACT_V = 32
+SAMPLED_PATHS = {0: "sampled_serving", SPEC_D: "sampled_speculative_serving"}
+
+
+def _sampled_requests(serving, base, scenario):
+    """``base`` (make_spec_requests) under one sampling scenario."""
+    return [serving.DecodeRequest(
+        r.prompt, r.max_new_tokens, sampling=serving.SamplingParams(
+            seed=SEED + i, **SAMPLING_SCENARIOS[scenario],
+            **(EDGE if i == 0 else {})))
+        for i, r in enumerate(base)]
+
+
+def _check_sampled_run(np, cfg, pool, reqs, results, name):
+    """The pool clean; every sequence finite and ended by its cap, or by
+    its stop sequence at its last token and nowhere before."""
+    from paddle_tpu_torch.serving import stop_hit
+
+    report = pool.check_invariants()
+    if not report["ok"] or pool.used_pages:
+        raise AssertionError(f"{name}: pool not clean after the run: "
+                             f"{report}")
+    for req, r in zip(reqs, results):
+        p = req.sampling
+        cap = min(req.max_new_tokens, p.max_new or req.max_new_tokens) \
+            if p is not None else req.max_new_tokens
+        n = len(r.tokens)
+        stops = [j + 1 for j in range(n) if stop_hit(r.tokens[:j + 1], p)]
+        if r.error is not None or not 0 < n <= cap or any(
+                j != n for j in stops) or (n < cap and stops != [n]):
+            raise AssertionError(f"{name}: sequence {r.seq_id}: {n} tokens "
+                                 f"(cap {cap}, stops at {stops}), error "
+                                 f"{r.error}")
+        if not all(np.isfinite(row).all() and row.shape == (cfg.vocab_size,)
+                   for row in r.logits):
+            raise AssertionError(f"{name}: sequence {r.seq_id}: bad logits")
+
+
+def _gate_sampled_launches(cfg, loop, launches, dtype, name):
+    """Launches equal steps x n_layer per variant of the pool's dtype,
+    flash_fwd > 0, and nothing of any other variant."""
+    sfx = "i8" if dtype == "int8" else "f32"
+    want = {"flash_fwd": loop.prefill_steps * cfg.n_layer,
+            "decode_" + sfx: (loop.decode_steps - loop.spec_steps)
+            * cfg.n_layer,
+            "verify_" + sfx: loop.spec_steps * cfg.n_layer}
+    got = {k: launches[k] for k in want}
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    if got != want or not got["flash_fwd"] or others:
+        raise AssertionError(f"{name}: launches {launches}, want {want}")
+
+
+def _recorded_rows(np, serving, reqs, results):
+    """Every emitted row of every request with its params and index g,
+    biased as the loop biased it: (rows [n, V], params, steps, tokens)."""
+    rows, ps, gs, toks = [], [], [], []
+    for req, r in zip(reqs, results):
+        for t, (row, tok) in enumerate(zip(r.logits, r.tokens)):
+            rows.append(serving.apply_bias(row, req.sampling))
+            ps.append(req.sampling)
+            gs.append(t)
+            toks.append(tok)
+    return np.stack(rows).astype(np.float32), ps, gs, np.asarray(toks)
+
+
+def _recorded_blocks(np, serving, reqs, results, sq):
+    """Verify-shaped inputs from recorded rows: for each request, blocks
+    of sq consecutive emitted rows from g = 0, sq, 2 sq, ..., drafting at
+    position j the argmax of row j (the draft most likely accepted), the
+    last draft of every other block replaced by the next token id (so
+    rejections come early too)."""
+    x, ps, gs, drafts = [], [], [], []
+    for req, r in zip(reqs, results):
+        for t in range(0, len(r.tokens) - sq + 1, sq):
+            rows = np.stack([serving.apply_bias(row, req.sampling)
+                             for row in r.logits[t:t + sq]])
+            d = [int(row.argmax()) for row in rows[:-1]]
+            if (t // sq) % 2:
+                d[-1] = (d[-1] + 1) % CFG["vocab_size"]
+            x.append(rows)
+            ps.append(req.sampling)
+            gs.append(t)
+            drafts.append(d)
+    return np.stack(x).astype(np.float32), ps, gs, drafts
+
+
+def _outside_margin(np, got, want, margin):
+    """Rows that differ with a margin above SAMPLING_MARGIN, and the
+    count of rows inside it."""
+    diff = np.asarray([not np.array_equal(g, w) for g, w in zip(got, want)])
+    near = margin <= SAMPLING_MARGIN
+    return np.flatnonzero(diff & ~near).tolist(), int(near.sum())
+
+
+def _spec_outcome(acc, toks):
+    """Each row's walk: its accepted count and the tokens it emits."""
+    return [(int(a),) + tuple(int(t) for t in row[:int(a) + 1])
+            for a, row in zip(acc, toks)]
+
+
+def _sampled_card_vs_cpu(torch, np, sampling, plain_in, spec_in):
+    """The card's epilogues against the CPU's on the same recorded rows,
+    outside the decision margin (the CPU's); and the planted fault (the
+    residual Gumbels drawn unsalted, on the card) that must fail it."""
+    dev = torch.device("cuda")
+    rows, ps, gs, loop_toks = plain_in
+    card = sampling.sample_rows(torch.as_tensor(rows, device=dev), ps, gs)
+    cpu = sampling.sample_rows(rows, ps, gs)
+    margin = sampling.decision_margins(rows, ps, gs)
+    bad, near = _outside_margin(np, card, cpu, margin)
+    loop_bad, loop_near = _outside_margin(np, loop_toks, card, margin)
+    x, sps, sgs, drafts = spec_in
+    xt = torch.as_tensor(x, device=dev)
+    card_s = _spec_outcome(*sampling.spec_sample_rows(xt, sps, sgs, drafts))
+    cpu_s = _spec_outcome(*sampling.spec_sample_rows(x, sps, sgs, drafts))
+    s_margin = sampling.decision_margins(x, sps, sgs, drafts)
+    s_bad, s_near = _outside_margin(np, card_s, cpu_s, s_margin)
+    real = sampling._salt
+    sampling._salt = (lambda k, salt: k if salt == sampling.RESIDUAL_SALT
+                      else real(k, salt))
+    try:
+        fault = _spec_outcome(*sampling.spec_sample_rows(xt, sps, sgs,
+                                                         drafts))
+    finally:
+        sampling._salt = real
+    f_bad, _ = _outside_margin(np, fault, cpu_s, s_margin)
+    accepted = sum(o[0] for o in cpu_s)
+    out = {"plain": {"rows": len(gs), "outside_margin": bad,
+                     "near_ties": near,
+                     "loop_tokens_outside_margin": loop_bad,
+                     "loop_near_ties": loop_near},
+           "spec": {"rows": len(sgs), "sq": x.shape[1],
+                    "accepted_drafts": accepted,
+                    "drafts": sum(len(d) for d in drafts),
+                    "outside_margin": s_bad, "near_ties": s_near},
+           "fault_residual_unsalted": {"outside_margin": len(f_bad)}}
+    for what, b, n, total in (("plain", bad + loop_bad, max(near, loop_near),
+                               len(gs)), ("spec", s_bad, s_near, len(sgs))):
+        if b or n > NEAR_SHARE * total:
+            raise AssertionError(f"sampled card vs CPU ({what}): {out}")
+    if not f_bad:
+        raise AssertionError(f"sampled card vs CPU: the planted fault "
+                             f"passed: {out}")
+    return out
+
+
+def _exactness(torch, np, sampling, kw):
+    """tests/test_torch_sampling.py's harness on the card: the first
+    token the accept/resample walk emits against the plain epilogue (TV),
+    the exact filtered softmax (chi-square) and p(draft) (acceptance),
+    over EXACT_SEEDS fixed seeds on one fixed row."""
+    dev = torch.device("cuda")
+    V, B = EXACT_V, EXACT_SEEDS
+    row = np.random.RandomState(SEED + 5).standard_normal(V).astype(
+        np.float32)
+    ps = [sampling.SamplingParams(seed=i, **kw) for i in range(B)]
+    p0 = ps[0]
+    x = sampling._filter_scaled(
+        torch.as_tensor(row[None]), torch.tensor([p0.temperature]),
+        torch.tensor([p0.top_k]), torch.tensor([p0.top_p]))[0].double()
+    x = (x - x[torch.isfinite(x)].max()).numpy()
+    e = np.where(np.isfinite(x), np.exp(x), 0.0)
+    p_exact = e / e.sum()
+    draft = int(np.argsort(p_exact)[-2])
+    spec = torch.as_tensor(np.broadcast_to(row, (B, 2, V)).copy(),
+                           device=dev)
+    acc, toks = sampling.spec_sample_rows(spec, ps, [0] * B, [[draft]] * B)
+    plain = sampling.sample_rows(spec[:, 0], ps, [0] * B)
+    emitted, accepted = toks[:, 0], acc >= 1
+    tv = 0.5 * float(np.abs(np.bincount(emitted, minlength=V)
+                            - np.bincount(plain, minlength=V)).sum()) / B
+    exp = p_exact * B
+    keep = exp >= 5
+    chi2 = float((((np.bincount(emitted, minlength=V) - exp) ** 2
+                   / np.maximum(exp, 1e-9))[keep]).sum())
+    dof = int(keep.sum()) - 1
+    p_d = float(p_exact[draft])
+    sigmas = abs(float(accepted.mean()) - p_d) / np.sqrt(p_d * (1 - p_d) / B)
+    out = {"tv": tv, "chi2": chi2, "dof": dof,
+           "chi2_bound": dof + 6 * np.sqrt(2 * dof),
+           "accept_rate": float(accepted.mean()), "p_draft": p_d,
+           "accept_sigmas": float(sigmas)}
+    if not (0 < accepted.sum() < B and (emitted[accepted] == draft).all()
+            and (emitted[~accepted] != draft).all() and tv < 0.05
+            and chi2 < out["chi2_bound"] and sigmas < 5):
+        raise AssertionError(f"sampled exactness {kw}: {out}")
+    return out
+
+
+EPILOGUE_REPS = 20
+
+
+def _epilogue_timing(torch, np, sampling, rows, ps):
+    """The epilogues at the loop's step shapes (B = MAX_BATCH rows of
+    recorded logits; the verify shape's Sq = SPEC_D + 1), EPILOGUE_REPS
+    calls each: a whole call's host ms (its host copies and syncs
+    included: what a loop step pays), and, under torch.profiler, the
+    device ms and kernels a call of the tensor work alone, and of the
+    stream alone (the Gumbels of one draw).  Eager launches are too
+    short and too many to time with events behind a device sleep: the
+    host falls behind the queue."""
+    from paddle_tpu_torch.serving import _threefry
+
+    dev = torch.device("cuda")
+    B, sq, V = MAX_BATCH, SPEC_D + 1, CFG["vocab_size"]
+    x = torch.as_tensor(rows[:B * sq], device=dev)
+    x2, x3 = x[:B].contiguous(), x.reshape(B, sq, V)
+    ps = ps[:B]
+    knobs = sampling._knobs(ps, dev)
+    g = torch.arange(B, device=dev)
+    drafts = torch.zeros(B, sq, dtype=torch.int64, device=dev)
+    q = torch.full((B,), sq, dtype=torch.int64, device=dev)
+    keys = sampling._key_g(knobs[3], g)
+    keys3 = sampling._key_g(knobs[3][:, None], g[:, None]
+                            + torch.arange(sq, device=dev))
+    gs = list(range(B))
+    host_drafts = [[0] * (sq - 1)] * B
+
+    def host_ms(fn):
+        fn()
+        times = []
+        for _ in range(EPILOGUE_REPS):
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    def device(fn):
+        fn()
+        prof = _profiled(torch, lambda: [fn() for _ in range(EPILOGUE_REPS)],
+                         marks={})
+        return {"device_ms": 1e3 * prof["busy_s"] / EPILOGUE_REPS,
+                "kernels": prof["device_records"] / EPILOGUE_REPS,
+                "profiled_wall_ms": 1e3 * prof["wall_s"] / EPILOGUE_REPS}
+
+    return {"sample_rows": {
+                "shape": [B, V],
+                "call_host_ms": host_ms(
+                    lambda: sampling.sample_rows(x2, ps, gs)),
+                "tensor_work": device(
+                    lambda: sampling._draw(x2, knobs, g)),
+                "stream": device(lambda: _threefry.gumbel(keys, V))},
+            "spec_sample_rows": {
+                "shape": [B, sq, V],
+                "call_host_ms": host_ms(
+                    lambda: sampling.spec_sample_rows(x3, ps, gs,
+                                                      host_drafts)),
+                "tensor_work": device(
+                    lambda: sampling._spec_draw(x3, knobs, g, drafts, q)),
+                "stream": device(lambda: _threefry.gumbel(keys3, V))}}
+
+
+def phase_sampled_serving(torch, np):
+    """Sampled serving at the Transformer-base width on the speculative
+    traffic (make_spec_requests) under serve_bench's three scenarios,
+    beside the greedy arm of the same requests, at d = 0 and speculate=4,
+    over fp32 and int8 pools: every counted run's launches, replay,
+    pool and stop/cap checks; an oracle-drafter run whose sampled drafts
+    are both accepted and rejected; the card's epilogues against the
+    CPU's on the recorded rows, with the planted salt fault; the TV /
+    chi-square harness; the epilogues' times.  Returns the launches of
+    the sampled runs by path."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.serving import sampling
+
+    cfg = serving.DecodeConfig(**CFG)
+    params = serving.init_decode_params(cfg, seed=SEED)
+    model = serving.TransformerDecoder(cfg).load_jax_params(params)
+    base = make_spec_requests(serving, np)
+    arms = {"greedy": base}
+    arms.update({s: _sampled_requests(serving, base, s)
+                 for s in SAMPLING_SCENARIOS})
+    for d in SAMPLED_PATHS:  # warm-up: the epilogues' first launches
+        serving.ContinuousBatchingLoop(model, cfg, _new_pool(serving, cfg),
+                                       max_batch=MAX_BATCH,
+                                       speculate=d).run(arms["topk"])
+    by_path = {p: {} for p in SAMPLED_PATHS.values()}
+    runs, recorded = {}, {}
+    for dtype in ("float32", "int8"):
+        for d, path in SAMPLED_PATHS.items():
+            for arm, reqs in arms.items():
+                name = f"{arm}{POOL_SFX[dtype]}_d{d}"
+                loop, pool, res, wall, launches = _counted_run(
+                    torch, serving, model, cfg, reqs, dtype=dtype,
+                    speculate=d)
+                _check_sampled_run(np, cfg, pool, reqs, res, name)
+                _gate_sampled_launches(cfg, loop, launches, dtype, name)
+                n_tok = sum(len(r.tokens) for r in res)
+                runs[name] = _spec_summary(loop, wall, n_tok)
+                runs[name].update(
+                    generated_tokens=n_tok, epilogue_calls=len(
+                        loop.epilogue_s), epilogue_ms_median=(
+                        1e3 * statistics.median(loop.epilogue_s)
+                        if loop.epilogue_s else None))
+                if arm == "greedy":
+                    continue
+                for k, v in launches.items():
+                    by_path[path][k] = by_path[path].get(k, 0) + v
+                rpool = _new_pool(serving, cfg, dtype=dtype)
+                replay = serving.ContinuousBatchingLoop(
+                    model, cfg, rpool, max_batch=MAX_BATCH,
+                    speculate=d).run(reqs)
+                _check_sampled_run(np, cfg, rpool, reqs, replay,
+                                   name + "_replay")
+                if [r.tokens for r in res] != [r.tokens for r in replay]:
+                    raise AssertionError(f"{name}: the replay's tokens "
+                                         "differ from the run's")
+                edge = res[0]
+                runs[name]["edge_request"] = {
+                    "tokens": len(edge.tokens),
+                    "ended_by": "stop" if sampling.stop_hit(
+                        edge.tokens, reqs[0].sampling) else "max_new"}
+                recorded[name] = (reqs, res)
+    spec_runs = [runs[f"{s}{sfx}_d{SPEC_D}"] for s in SAMPLING_SCENARIOS
+                 for sfx in ("_f32", "_i8")]
+    if not sum(r["drafted_tokens"] for r in spec_runs):
+        raise AssertionError("sampled speculation drafted nothing")
+
+    # the oracle drafter over sampled rows: the d = 0 run's tokens
+    oreqs, ores = recorded["topk_f32_d0"]
+    loop_o, pool_o, res_o, wall_o, launches_o = _counted_run(
+        torch, serving, model, cfg, oreqs, speculate=SPEC_D,
+        drafter=OracleDrafter(oreqs, ores, cfg.vocab_size))
+    _check_sampled_run(np, cfg, pool_o, oreqs, res_o, "sampled_oracle")
+    _gate_sampled_launches(cfg, loop_o, launches_o, "float32",
+                           "sampled_oracle")
+    if not (loop_o.accepted_tokens and loop_o.rolled_back_tokens
+            and launches_o["verify_f32"]):
+        raise AssertionError(
+            f"sampled oracle drafter: accepted {loop_o.accepted_tokens}, "
+            f"rolled back {loop_o.rolled_back_tokens}, verify launches "
+            f"{launches_o['verify_f32']}: each must be > 0")
+    for k, v in launches_o.items():
+        path = by_path["sampled_speculative_serving"]
+        path[k] = path.get(k, 0) + v
+
+    # card against CPU on the recorded rows, by scenario
+    parity = {}
+    for s in SAMPLING_SCENARIOS:
+        plain_in = _recorded_rows(np, serving, *recorded[f"{s}_f32_d0"])
+        spec_in = _recorded_blocks(np, serving,
+                                   *recorded[f"{s}_f32_d{SPEC_D}"],
+                                   SPEC_D + 1)
+        parity[s] = _sampled_card_vs_cpu(torch, np, sampling, plain_in,
+                                         spec_in)
+    accepted = [v["spec"]["accepted_drafts"] for v in parity.values()]
+    if not 0 < sum(accepted) < sum(v["spec"]["drafts"]
+                                   for v in parity.values()):
+        raise AssertionError(f"sampled card vs CPU: accepted drafts "
+                             f"{accepted}: both arms must fire")
+    exact = {s: _exactness(torch, np, sampling, kw)
+             for s, kw in SAMPLING_SCENARIOS.items()}
+    rows, ps, _, _ = _recorded_rows(np, serving, *recorded["topk_f32_d0"])
+    timing = _epilogue_timing(torch, np, sampling, rows, ps)
+    emit({"phase": "sampled_serving", "card": card_line(), "config": CFG,
+          "scenarios": SAMPLING_SCENARIOS, "edge_request": {
+              "logit_bias": EDGE["logit_bias"], "stop": EDGE["stop"],
+              "max_new": EDGE["max_new"]},
+          "max_batch": MAX_BATCH, "requests": N_REQUESTS,
+          "max_new_tokens": MAX_NEW, "speculate": SPEC_D,
+          "traffic": "motif-tiled (tools/serve_bench.py --speculate), "
+                     "request i seeded SEED + i",
+          "runs": runs, "replay": "bit-equal in every sampled run",
+          "oracle_drafter": _spec_summary(loop_o, wall_o, sum(
+              len(r.tokens) for r in res_o)),
+          "card_vs_cpu": parity, "exactness": exact,
+          "epilogue": timing, "launches_by_path": by_path})
+    return by_path
 
 
 # -- phase 3c: long-context serving ----------------------------------------
@@ -5966,6 +6372,7 @@ def main() -> int:
     conv_bf16_err = phase_conv_parity_bf16(torch, fluid)
     serve_launches, reqs = phase_main_path(torch, np)
     spec_launches, spec_reqs = phase_spec_main_path(torch, np)
+    sampled_launches = phase_sampled_serving(torch, np)
     lc_launches = phase_longctx(torch, np)
     lc_bf16_launches = phase_longctx_bf16(torch, np)
     prefix_launches = phase_prefix_serving(torch, np)
@@ -5983,8 +6390,16 @@ def main() -> int:
     phase_deepfm_training(torch, np, fluid)
     torch.cuda.empty_cache()
     kernels = phase_timing(torch, np, reqs, parity_err, serve_launches)
-    kernels += phase_spec_timing(torch, np, spec_reqs, spec_err,
-                                 spec_launches)
+    spec_rows = phase_spec_timing(torch, np, spec_reqs, spec_err,
+                                  spec_launches)
+    for r in spec_rows:  # verify_f32, decode_i8, verify_i8
+        variant = r["name"].removeprefix("paged_")
+        r["launches_by_path"] = {
+            "int8_serving" if variant.endswith("i8")
+            else "speculative_serving": r["launches"],
+            **{path: n[variant] for path, n in sampled_launches.items()}}
+        r["launches"] = sum(r["launches_by_path"].values())
+    kernels += spec_rows
     lc_rows, lc_flat = phase_longctx_timing(torch, np, lc_err, lc_launches)
     kernels += lc_rows
     bf16_rows = phase_bf16_paged_timing(
@@ -6033,6 +6448,8 @@ def main() -> int:
     by_path = {"serving": serve_launches["flash_fwd"],
                "speculative_serving": spec_launches["spec"]["flash_fwd"],
                "int8_serving": spec_launches["int8"]["flash_fwd"],
+               **{path: n["flash_fwd"]
+                  for path, n in sampled_launches.items()},
                "long_context_serving": sum(
                    a["flash_fwd"] for a in lc_launches.values()),
                "training": train_launches["flash_fwd"],
@@ -6049,6 +6466,8 @@ def main() -> int:
         "library_ms", "encoder_noncausal")}
     by_path = {"serving": serve_launches["paged_decode"],
                "speculative_serving": spec_launches["spec"]["decode_f32"],
+               **{path: n["decode_f32"]
+                  for path, n in sampled_launches.items()},
                "long_context_no_window":
                    lc_launches["no_window"]["by_variant"]["decode_f32"],
                "shared_prefix_fp32_cache":

@@ -1,6 +1,6 @@
-"""Greedy continuous-batching decode over the paged KV pool, with greedy
-speculative decoding (counterpart of paddle_tpu/serving/generate.py,
-the single-device greedy slice).
+"""Continuous-batching decode over the paged KV pool, greedy or sampled
+per request, with speculative decoding (counterpart of
+paddle_tpu/serving/generate.py, its single-device loop).
 
 The model is the decoder half of the repo's Transformer: post-norm
 residual blocks (LayerNorm(x + sublayer(x))), scaled embedding plus
@@ -30,17 +30,22 @@ with either, the kernel walks explicit page starts (``_step_tables``).
 :class:`ContinuousBatchingLoop` keeps up to ``max_batch`` sequences in
 flight.  Admission is reservation-based and FIFO (a request enters only
 when the pool covers every admitted sequence's worst case), each
-admitted group gets one batched prefill, decoding is greedy argmax, and
-a sequence retires on ``eos_id`` or ``max_new_tokens`` and returns its
-pages.  With ``speculate=d`` each decoding sequence drafts up to d
-tokens by prompt lookup (``speculative.PromptLookupDrafter``), one
-verify step checks every block, the longest prefix the model agrees
-with is committed, and ``pool.truncate_seq`` rolls the rejected tokens
-back.  A non-finite logits row quarantines only its own sequence; any
-exception out of a step frees every stepping sequence's pages before it
-propagates.  Both steps pass an int8 pool's per-page scales to the
-kernel.  A request with ``window=`` decodes under the sliding window
-(plus ``sinks`` tokens' pages); before each decode step the loop evicts
+admitted group gets one batched prefill, and each token is the
+(bias-shifted) greedy argmax, or for a request with sampling params
+(``sampling.SamplingParams``: temperature, top-k, top-p) a draw of the
+step's one sampling epilogue, on the logits' device, from JAX's own
+(seed, token-index) stream.  A sequence retires on ``eos_id``, its
+``max_new`` cap or a stop sequence and returns its pages.  With
+``speculate=d`` each decoding sequence drafts up to d tokens by prompt
+lookup (``speculative.PromptLookupDrafter``) and one verify step checks
+every block: a greedy row commits the longest prefix its argmax agrees
+with, a sampled row the outcome of the exact accept/resample epilogue,
+and ``pool.truncate_seq`` rolls the rejected tokens back.  A non-finite
+logits row quarantines only its own sequence; any exception out of a
+step frees every stepping sequence's pages before it propagates.  Both
+steps pass an int8 pool's per-page scales to the kernel.  A request
+with ``window=`` decodes under the sliding window (plus ``sinks``
+tokens' pages); before each decode step the loop evicts
 the pages that window can never attend again, so a long context's walk
 stays at sinks + window pages.  ``table_block=`` sends every decode and
 verify step's tables through the two-level view.  ``prefix_cache=`` (a
@@ -53,9 +58,8 @@ then alternate with decode steps.
 decode recomputing the whole prefix with plain attention and no cache,
 under ``window_mask`` for windowed decode.
 
-Left for later slices: sampling and sampled speculation, the corpus
-drafter, the ``prefill="token"`` arm, adapters, SPMD programs, the tiered
-KV store and the Engine front end.
+Left for later slices: the corpus drafter, the ``prefill="token"`` arm,
+adapters, SPMD programs, the tiered KV store and the Engine front end.
 """
 
 from __future__ import annotations
@@ -85,6 +89,14 @@ from ..kernels.paged_attention import (
 from ..models.transformer import _sinusoid_table
 from . import prefill_sched
 from .kvcache import KVCachePool, PagePoolExhausted
+from .sampling import (
+    SamplingParams,
+    apply_bias,
+    bias_rows,
+    sample_rows,
+    spec_sample_rows,
+    stop_hit,
+)
 from .speculative import PromptLookupDrafter
 
 __all__ = [
@@ -662,12 +674,14 @@ class DecodeRequest:
     the pages of its first ``sinks`` tokens (attention sinks); prefill
     stays full attention.  The loop evicts the pages that mask can never
     light again, and the output is token-identical to ``full_decode``
-    under the same ``window_mask``."""
+    under the same ``window_mask``.  ``sampling`` (None: exact greedy)
+    carries the request's sampling contract."""
 
     prompt: Sequence[int]
     max_new_tokens: int
     window: Optional[int] = None
     sinks: int = 0
+    sampling: Optional[SamplingParams] = None
 
 
 @dataclasses.dataclass
@@ -708,8 +722,13 @@ class _Active:
         return not self.whole and self.pos < len(self.result.prompt)
 
 
+def _sampled(a: "_Active") -> bool:
+    """True when the sequence draws its tokens (temperature > 0)."""
+    return a.req.sampling is not None and not a.req.sampling.greedy
+
+
 class ContinuousBatchingLoop:
-    """Admit-as-they-retire greedy decode over one KVCachePool.
+    """Admit-as-they-retire decode over one KVCachePool.
 
     ``params`` is a JAX-layout params dict (loaded into a
     :class:`TransformerDecoder` on ``device``) or a TransformerDecoder
@@ -722,6 +741,15 @@ class ContinuousBatchingLoop:
     mid-decode; waiting requests admit in FIFO order as retirements free
     pages.  Each co-admitted group runs ONE ``prefill_step``; the loop
     then re-admits before decoding.
+
+    Each emitted token is the greedy argmax of its logits row with the
+    request's ``logit_bias`` added (on the host, as the JAX package), or,
+    for a request whose ``sampling`` has a temperature, one row of the
+    step's single ``sample_rows`` call on the logits' device; the g-th
+    generated token draws from ``fold_in(PRNGKey(seed), g)``.  A
+    sequence retires on EOS, ``min(max_new_tokens, sampling.max_new)`` or
+    a stop sequence, checked after every token.  A ``logit_bias`` id
+    outside the vocab fails ``run`` before any work.
 
     ``prefix_cache`` (a :class:`PrefixCache` over this loop's pool)
     matches each admitted prompt's longest cached prefix and attaches its
@@ -737,16 +765,21 @@ class ContinuousBatchingLoop:
     the cache; a retired sequence's pages drop one hold each; a
     quarantined sequence that read cached pages invalidates its chain.
 
-    ``speculate=d`` (0: off) arms greedy speculative decoding: each
+    ``speculate=d`` (0: off) arms speculative decoding: each
     decoding sequence drafts up to min(d, its remaining max_new) tokens
     with ``drafter`` (None: a ``PromptLookupDrafter(max_draft=d)``; a
     drafter with ``stateful`` set gets ``seq_id=`` and a ``release`` on
     retirement and quarantine); when any block is longer than one token
-    the step is a ``verify_step``, and each sequence commits the longest
-    prefix of its draft that the model's argmax agrees with, plus the
-    model's own next token, honouring EOS and max_new inside the block;
-    the rejected tokens leave the pool through ``truncate_seq``.  Greedy
-    output is token-identical to unspeculated decode.
+    the step is a ``verify_step``.  A greedy sequence commits the longest
+    prefix of its draft that the model's (biased) argmax agrees with,
+    plus the model's own next token; the drafted sampled sequences go
+    through one ``spec_sample_rows`` call (accept with probability p(d),
+    else resample the residual), and an undrafted sampled one takes the
+    plain epilogue.  EOS, the cap and stop sequences retire a sequence
+    inside its block; the rejected tokens leave the pool through
+    ``truncate_seq`` and consume no token index.  Greedy output is
+    token-identical to unspeculated decode, sampled output
+    distribution-identical.
 
     Requests with ``window=`` decode under the window + sink mask: a
     step whose batch holds a generating windowed sequence passes per-row
@@ -766,7 +799,9 @@ class ContinuousBatchingLoop:
     prompt tokens the model ran), ``max_prefill_tokens_step``; host-clock
     durations of each step (ending after the logits reach the host) in
     ``prefill_step_s`` (chunk steps included), ``decode_step_s`` and
-    ``verify_step_s``."""
+    ``verify_step_s``, and of each sampling epilogue call (``sample_rows``
+    or ``spec_sample_rows``, bias and host copy included, after the
+    step's end) in ``epilogue_s``."""
 
     def __init__(self, params: Union[Dict, TransformerDecoder],
                  cfg: DecodeConfig, pool: KVCachePool, max_batch: int = 4,
@@ -839,11 +874,21 @@ class ContinuousBatchingLoop:
         self.prefill_step_s: List[float] = []
         self.decode_step_s: List[float] = []
         self.verify_step_s: List[float] = []
+        self.epilogue_s: List[float] = []
 
     def acceptance_rate(self) -> float:
         """Accepted / drafted tokens (0.0 before any draft)."""
         return (self.accepted_tokens / self.drafted_tokens
                 if self.drafted_tokens else 0.0)
+
+    @staticmethod
+    def _max_new(a: "_Active") -> int:
+        """The effective cap: max_new_tokens, tightened by the sampling
+        params' max_new."""
+        p = a.req.sampling
+        if p is not None and p.max_new is not None:
+            return min(a.req.max_new_tokens, p.max_new)
+        return a.req.max_new_tokens
 
     def _spec_room(self, a: "_Active") -> int:
         """Draft tokens sequence `a` may carry this step: the loop's d,
@@ -851,8 +896,7 @@ class ContinuousBatchingLoop:
         passes the worst case its admission reserved."""
         if not self._speculate:
             return 0
-        return min(self._speculate,
-                   a.req.max_new_tokens - len(a.result.tokens))
+        return min(self._speculate, self._max_new(a) - len(a.result.tokens))
 
     def _draft_block(self, a: "_Active") -> List[int]:
         """The last committed token plus the drafter's proposal, clamped
@@ -905,6 +949,11 @@ class ContinuousBatchingLoop:
         for req in requests:
             if not len(req.prompt):
                 raise ValueError("empty prompt")
+            if req.sampling is not None \
+                    and req.sampling.max_bias_token() >= self.cfg.vocab_size:
+                raise ValueError(
+                    f"logit_bias token {req.sampling.max_bias_token()} >= "
+                    f"vocab_size {self.cfg.vocab_size}")
             if req.window is not None and req.window < 1:
                 raise ValueError(
                     f"window must be >= 1 token, got {req.window}")
@@ -953,18 +1002,43 @@ class ContinuousBatchingLoop:
 
         def emit(a: _Active, row: np.ndarray, now: float,
                  tok: Optional[int] = None) -> bool:
-            """Record one token (None: the greedy argmax of ``row``); True
-            when the sequence is done — checked after every token, so an
-            EOS inside an accepted draft block retires it there."""
+            """Record one token (None: the argmax of ``row`` with the
+            request's bias added); True when the sequence is done — EOS,
+            its cap or a stop sequence, checked after every token, so one
+            inside an accepted draft block retires it there."""
+            params = a.req.sampling
             if tok is None:
-                tok = int(row.argmax())
+                tok = int(apply_bias(row, params).argmax())
             a.result.tokens.append(tok)
             a.result.logits.append(row)
             if a.result.ttft_s is None:
                 a.result.ttft_s = now - a.result.admitted_at
-            return (len(a.result.tokens) >= a.req.max_new_tokens
+            return (len(a.result.tokens) >= self._max_new(a)
                     or (self.cfg.eos_id is not None
-                        and tok == self.cfg.eos_id))
+                        and tok == self.cfg.eos_id)
+                    or stop_hit(a.result.tokens, params))
+
+        def emit_batch(pairs: List[Tuple[_Active, np.ndarray, int]],
+                       dev: torch.Tensor, now: float) -> List[_Active]:
+            """Emit one token for each (sequence, host row, row index of
+            ``dev``): the sampled rows through ONE ``sample_rows`` call on
+            ``dev``'s device (bias added there), the greedy rows by host
+            argmax.  Returns the finished sequences."""
+            toks: List[Optional[int]] = [None] * len(pairs)
+            sampled = [j for j, (a, _, _) in enumerate(pairs) if _sampled(a)]
+            if sampled:
+                t0 = time.perf_counter()
+                params = [pairs[j][0].req.sampling for j in sampled]
+                idx = torch.as_tensor([pairs[j][2] for j in sampled],
+                                      device=dev.device)
+                chosen = sample_rows(
+                    bias_rows(dev.index_select(0, idx), params), params,
+                    [len(pairs[j][0].result.tokens) for j in sampled])
+                self.epilogue_s.append(time.perf_counter() - t0)
+                for j, tk in zip(sampled, chosen):
+                    toks[j] = int(tk)
+            return [a for (a, row, _), tk in zip(pairs, toks)
+                    if emit(a, row, now, tok=tk)]
 
         def retire(done: List[_Active], now: float) -> None:
             nonlocal reserved_pages
@@ -1027,15 +1101,14 @@ class ContinuousBatchingLoop:
             self._note_prefill(sum(len(a.result.prompt) for a in group))
             host, ok, now = quarantine(group, logits, step_idx)
             self.prefill_step_s.append(now - t0)
-            done = []
+            pairs = []
             for i, a in enumerate(group):
                 a.pos = len(a.result.prompt)
                 if i not in ok:
                     continue
                 self._cache_insert(a)
-                if emit(a, host[i], now):
-                    done.append(a)
-            retire(done, now)
+                pairs.append((a, host[i], i))
+            retire(emit_batch(pairs, logits, now), now)
 
         def chunk_prefill(chunkers: List[_Active]) -> None:
             """One chunk step over the prefilling sequences, packed by
@@ -1056,16 +1129,15 @@ class ContinuousBatchingLoop:
             self._note_prefill(sum(len(c) for c in chunks))
             host, ok, now = quarantine(sel, logits, step_idx)
             self.prefill_step_s.append(now - t0)
-            done = []
+            pairs = []
             for i, a in enumerate(sel):
                 if i not in ok:
                     continue
                 a.pos += len(chunks[i])
                 if a.pos >= len(a.result.prompt):
                     self._cache_insert(a)
-                    if emit(a, host[i], now):
-                        done.append(a)
-            retire(done, now)
+                    pairs.append((a, host[i], i))
+            retire(emit_batch(pairs, logits, now), now)
 
         def window_args(batch: List[_Active]):
             """The step's (windows, sinks) [B] int32 operands, or (None,
@@ -1101,10 +1173,24 @@ class ContinuousBatchingLoop:
                 kw["table_block"] = self._table_block
             return kw
 
+        def settle(a: _Active, blk: List[int], accepted: int) -> None:
+            """ROLLBACK after a sequence's walk: rejected draft tokens, and
+            fed tokens past an in-block EOS, stop or cap, leave the page
+            table."""
+            self.accepted_tokens += accepted
+            new_len = a.pos + 1 + accepted
+            if a.pos + len(blk) > new_len:
+                self.pool.truncate_seq(a.seq_id, new_len)
+                self.rolled_back_tokens += a.pos + len(blk) - new_len
+            a.pos = new_len
+
         def verify(batch: List[_Active], blocks: List[List[int]],
                    t0: float, step_idx: int) -> None:
-            """One verify step over every sequence's block, then the
-            acceptance walk and rollback of each."""
+            """One verify step over every sequence's block, then each
+            sequence's walk and rollback: the longest-prefix walk for a
+            greedy sequence, one accept/resample epilogue call for the
+            drafted sampled ones, the plain epilogue for an undrafted
+            sampled one."""
             logits3 = self.model.verify_step(
                 self.pool, [a.seq_id for a in batch], blocks,
                 [a.pos for a in batch], pad_to=self._speculate + 1,
@@ -1118,32 +1204,59 @@ class ContinuousBatchingLoop:
             self.drafted_tokens += sum(len(b) - 1 for b in blocks)
             host, ok, now = quarantine(batch, logits3, step_idx)
             self.verify_step_s.append(now - t0)
-            done = []
+            done: List[_Active] = []
+            pairs = []  # undrafted sampled rows: the plain epilogue
+            spec: List[Tuple[int, _Active]] = []  # drafted sampled rows
             for i, a in enumerate(batch):
                 if i not in ok:
                     continue  # quarantined (pages already freed)
-                blk, start = blocks[i], a.pos
-                # ACCEPTANCE walk: row t predicts position start+t+1; emit
-                # its argmax and walk on only while it matches the draft
-                # (whose K/V is then already in the pool)
+                blk = blocks[i]
+                if _sampled(a):
+                    if len(blk) == 1:
+                        a.pos += 1
+                        pairs.append((a, host[i, 0], i))
+                    else:
+                        spec.append((i, a))
+                    continue
+                # ACCEPTANCE walk: row t predicts position pos+t+1; emit
+                # its biased argmax and walk on only while it matches the
+                # draft (whose K/V is then already in the pool)
                 accepted, fin = 0, False
                 for t in range(len(blk)):
-                    tok = int(host[i, t].argmax())
+                    tok = int(apply_bias(host[i, t], a.req.sampling).argmax())
                     fed = t + 1 < len(blk) and tok == blk[t + 1]
                     accepted += fed
                     fin = emit(a, host[i, t], now, tok=tok)
                     if fin or not fed:
                         break
-                self.accepted_tokens += accepted
-                # ROLLBACK: rejected draft tokens, and fed tokens past an
-                # in-block EOS or max_new, leave the page table
-                new_len = start + 1 + accepted
-                if start + len(blk) > new_len:
-                    self.pool.truncate_seq(a.seq_id, new_len)
-                    self.rolled_back_tokens += start + len(blk) - new_len
-                a.pos = new_len
+                settle(a, blk, accepted)
                 if fin:
                     done.append(a)
+            if spec:
+                # one accept/resample call on the logits' device decides
+                # every drafted sampled row; the host walk then emits and
+                # rolls back as the greedy walk does
+                t1 = time.perf_counter()
+                params = [a.req.sampling for _, a in spec]
+                idx = torch.as_tensor([i for i, _ in spec],
+                                      device=logits3.device)
+                acc, toks = spec_sample_rows(
+                    bias_rows(logits3.index_select(0, idx), params), params,
+                    [len(a.result.tokens) for _, a in spec],
+                    [blocks[i][1:] for i, _ in spec])
+                self.epilogue_s.append(time.perf_counter() - t1)
+                for r, (i, a) in enumerate(spec):
+                    accepted, fin = 0, False
+                    for t in range(int(acc[r]) + 1):
+                        fed = t < int(acc[r])
+                        accepted += fed
+                        fin = emit(a, host[i, t], now, tok=int(toks[r, t]))
+                        if fin or not fed:
+                            break
+                    settle(a, blocks[i], accepted)
+                    if fin:
+                        done.append(a)
+            done += emit_batch(pairs, logits3[:, 0], now)
             retire(done, now)
 
         try:
@@ -1181,12 +1294,12 @@ class ContinuousBatchingLoop:
                 self.decode_steps += 1
                 host, ok, now = quarantine(batch, logits, step_idx)
                 self.decode_step_s.append(now - t0)
-                done = []
+                pairs = []
                 for i, a in enumerate(batch):
                     a.pos += 1
-                    if i in ok and emit(a, host[i], now):
-                        done.append(a)
-                retire(done, now)
+                    if i in ok:
+                        pairs.append((a, host[i], i))
+                retire(emit_batch(pairs, logits, now), now)
         except BaseException:
             # ANY raise out of a step or admission: the stepping sequences'
             # pages go back to the pool before the error propagates

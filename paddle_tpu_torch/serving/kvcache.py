@@ -1,5 +1,5 @@
 """Paged KV-cache pool (counterpart of paddle_tpu/serving/kvcache.py,
-reduced to what greedy continuous batching with speculation and a prefix
+reduced to what continuous batching with speculation and a prefix
 cache calls).
 
 The pool is one preallocated torch tensor per K and V of shape
